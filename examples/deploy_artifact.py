@@ -6,7 +6,7 @@ load time (reference ``emulator.py:319-337``; ``preprocess.py:88-101``).
 Here the whole fused chain — ``par_transform → MLP → unpreproc`` with
 weights and normalization folded in — serializes as ONE StableHLO binary
 (:mod:`tpu21cmvae.deploy`, ``jax.export``) with a symbolic batch
-dimension and cpu+tpu lowering. The consumer side needs JAX and nothing
+dimension and cpu+cuda lowering. The consumer side needs JAX and nothing
 else, as the replay section below demonstrates by bypassing the package
 entirely.
 

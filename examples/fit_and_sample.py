@@ -8,8 +8,8 @@ spectra as the intended use). Here both halves are single ``lax.scan``
 device programs over the fused likelihood paths:
 
 1. :func:`tpu21cmvae.sampling.fit_map` — multi-start Adam ascent on the
-   fused value+gradient kernel (~4×10⁷ value+grad evals/s on one v5e
-   chip, docs/PERF.md); 1,024 restarts cost what one costs.
+   analytic value+gradient path (rates in docs/PERF.md); 1,024
+   restarts cost what one costs.
 2. :func:`tpu21cmvae.sampling.sample_ensemble` — the Goodman & Weare
    stretch move (emcee's algorithm) with the walkers seeded from the
    fit's final positions, so warmup only has to decorrelate, not find

@@ -5,8 +5,8 @@ The reference supports ~25 likelihood evaluations/s with no gradients at
 all (reference ``README.rst:11``); composing ∇logL by hand would mean
 differentiating through Keras predict. Here the value AND per-row
 gradient of the Gaussian log-likelihood come from ONE device function
-(:func:`tpu21cmvae.ops.loglik.make_loglik_and_grad` — the bench-selected
-analytic/fused gram backward, see docs/PERF.md), and a whole HMC
+(:func:`tpu21cmvae.ops.loglik.make_loglik_and_grad` — the analytic
+gram backward, see docs/PERF.md), and a whole HMC
 ensemble (leapfrog + Metropolis correction) runs as one ``lax.scan``
 program per chain segment.
 
@@ -21,8 +21,7 @@ This example builds the HMC kernel BY HAND to show the moving parts
 (whitening, leapfrog, Metropolis correction). For production use prefer
 the library samplers, which add dual-averaging step adaptation, an
 ensemble-statistics metric, and — with ``sampler="chees"`` — adaptive
-trajectory lengths (ChEES-HMC, measured 1.46× the min-ESS/s of tuned
-HMC on v5e, docs/PERF.md)::
+trajectory lengths (ChEES-HMC, docs/PERF.md)::
 
     model.sample_posterior(obs, noise_var, sampler="chees")
 
@@ -99,19 +98,14 @@ def main():
     def log_jac(y):  # log |d params / d y| for the sigmoid map
         return jnp.sum(jax.nn.log_sigmoid(y) + jax.nn.log_sigmoid(-y), -1)
 
-    # value AND per-row gradient in one device call. Config = the
-    # bench-selected winner on v5e (bench_mcmc.py grad table,
-    # docs/PERF.md): the fused Pallas kernel (activations never leave
-    # VMEM) with the bf16x3 value tier and a single-pass-bf16 backward —
-    # 38M valgrad/s, +15% over the best XLA backward, +64% over
-    # autodiff. Gradient-tier error only costs acceptance rate: leapfrog
-    # with a deterministic approximate force field stays reversible and
-    # volume-preserving, and the accept step uses the gated value. (On
-    # non-TPU hosts the kernel runs in interpret mode — swap to
-    # backend="xla" there for speed.)
-    backend = "pallas" if jax.default_backend() == "tpu" else "xla"
+    # value AND per-row gradient in one device call: the analytic gram
+    # backward (bench_mcmc.py grad table, docs/PERF.md) with the fast
+    # backward tier. Gradient-tier error only costs acceptance rate:
+    # leapfrog with a deterministic approximate force field stays
+    # reversible and volume-preserving, and the accept step uses the
+    # gated value.
     valgrad = model.loglik_and_grad_fn(
-        obs, noise_var, backend=backend, grad_precision="default"
+        obs, noise_var, grad_precision="default"
     )
     weights = model.params
 

@@ -61,12 +61,12 @@ def main():
     # never exists (ops/loglik.py; measured tiers in docs/PERF.md).
     # Inside a jitted scan, use the RAW function and let the walkers'
     # sharding propagate — a sharding-CONSTRAINED jit nested in the scan
-    # forces per-step relayouts (measured 25× slower).
+    # forces per-step relayouts.
     from tpu21cmvae.ops.loglik import make_loglik
 
     loglik = make_loglik(
         model.config, model.normalizer, obs, noise_var, method="gram"
-    )  # measured-fastest gate-passing tier on v5e (docs/PERF.md)
+    )  # gram form at the default tier (bench_mcmc.py gates it)
     weights = replicate(model.params, mesh)
 
     def log_like(raw):
@@ -91,7 +91,7 @@ def main():
     def run_chain(state, keys):
         # the WHOLE chain is one device program — per-step host dispatch
         # would dominate wall time (dependent round trips); lax.scan
-        # keeps the sampler on-chip end to end
+        # keeps the sampler on the device end to end
         return jax.lax.scan(mh_step, state, keys)
 
     rng = np.random.default_rng(0)

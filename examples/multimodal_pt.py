@@ -47,8 +47,8 @@ def main():
     ap.add_argument("--walkers", type=int, default=256)
     ap.add_argument("--steps", type=int, default=1200,
                     help="mode-weight convergence is transport-limited "
-                         "(~O(1000) sweeps); seconds on TPU, minutes "
-                         "on CPU")
+                         "(~O(1000) sweeps); seconds on a GPU, "
+                         "minutes on CPU")
     ap.add_argument("--warmup", type=int, default=400)
     ap.add_argument("--rungs", type=int, default=32)
     ap.add_argument("--retrain", action="store_true",

@@ -1,20 +1,17 @@
-"""Tier-native checkpoints: maximum-throughput inference within the
-golden accuracy contract (round 5).
+"""Tier-native checkpoints: fast-tier inference within the golden
+accuracy contract.
 
 The reference runs every prediction at one implicit precision
-(~40 ms/signal, reference ``README.rst:11``). On TPU the precision
-TIER is a first-class knob, and the round-5 move is to gate it on
-accuracy-to-TRUTH instead of f32-agreement: a checkpoint fine-tuned
-WITH the single-pass-bf16 forward in its loss
+(~40 ms/signal, reference ``README.rst:11``). Here the matmul precision
+TIER is a knob, gated on accuracy-to-TRUTH instead of f32-agreement: a
+checkpoint fine-tuned WITH the fast forward in its loss
 (``DirectEmulator.train(loss_precision=jax.lax.Precision.DEFAULT)``,
-``scripts/finetune_bf16_tpu.py``) holds the golden test error AT the
-fast tier — measured 0.174 % mean at 128M signals/s on one v5e chip
-(the contract tier's same-weights agreement gate would have rejected
-it at 40× the budget; docs/PERF.md tells the whole story).
+``scripts/finetune_bf16.py``) holds the golden test error AT the fast
+tier, where the same-weights agreement gate can reject it. bench.py
+times every tier and docs/PERF.md records the rates on a GPU.
 
-This demo is headless and CPU-safe (the DEFAULT tier lowers to plain
-f32 off-TPU, so the printed errors are the weights' golden numbers;
-the throughput numbers quoted are the recorded TPU measurements).
+This demo is headless and CPU-safe (the DEFAULT tier is plain f32 on the
+CPU, so the printed errors are the weights' golden numbers at f32).
 """
 
 from __future__ import annotations
@@ -44,9 +41,9 @@ def main():
     for fname, note in (
         ("direct_synthetic.npz", "reference shape, contract tier"),
         ("direct_synthetic_bf16.npz",
-         "reference shape, TIER-NATIVE bf16 (128.4M sig/s on v5e)"),
+         "reference shape, tier-native"),
         ("direct_aligned_bf16.npz",
-         "MXU-128-aligned + tier-native (fastest bf16x3-tier shape)"),
+         "128-aligned widths, tier-native"),
     ):
         path = os.path.join(ROOT, "pretrained", fname)
         if not os.path.exists(path):
@@ -64,22 +61,20 @@ def main():
                      em.config.mlp().weight_count, padded, note))
 
     print(f"{'checkpoint':34} {'tier':9} {'mean%':>7} {'med%':>7} "
-          f"{'weights':>8} {'padded MXU/row':>14}")
+          f"{'weights':>8} {'padded FLOP/row':>15}")
     for fname, tier, m, md, w, p, note in rows:
-        print(f"{fname:34} {tier:9} {m:7.3f} {md:7.3f} {w:8d} {p:14.0f}"
+        print(f"{fname:34} {tier:9} {m:7.3f} {md:7.3f} {w:8d} {p:15.0f}"
               f"   <- {note}")
     print(
         "\nAll three hold the reference's 0.34 % contract "
         "(reference tests/test_emulator.py:76). Pick per workload:\n"
-        "  - contract tier: bit-exact f32 forward (33M sig/s on v5e)\n"
-        "  - native bf16:   2.2x the bf16x3 headline at golden "
-        "accuracy (bench.py's selected tier)\n"
-        "  - aligned:       +20 % at the bf16x3 tier where the MXU "
-        "binds (docs/PERF.md measured both sides)\n"
-        "NOTE: the native LIKELIHOOD tier is a measured dead end — "
-        "posteriors shift 0.2-0.4 sd and log Z moves up to 7 nats "
-        "(scripts/native_loglik_tpu.json); keep loglik_fn at its "
-        "bf16x3 default."
+        "  - contract tier: exact f32 forward\n"
+        "  - tier-native:   the fast tier at golden accuracy\n"
+        "  - aligned:       the same, with 2.7x fewer padded FLOPs\n"
+        "Rates per tier on a GPU: bench.py and docs/PERF.md. The "
+        "native tier is a PREDICT tier; keep loglik_fn at its default "
+        "(a tier-native likelihood moved posteriors by 0.2-0.4 sd when "
+        "it was last measured, with a bf16 forward)."
     )
 
 

@@ -5,8 +5,8 @@ an external-sampler run over ~40 ms-per-signal ``predict`` calls
 (reference ``README.rst:9-11``). Here a BATCH of observed spectra gets
 its evidences from one batched Laplace+AMIS sweep
 (:meth:`DirectEmulator.log_evidence_batch` — every stage batched over
-observations, ~0.5 s/evidence warm on v5e), and the round-4 policy
-makes the result trustworthy end to end:
+observations), and the escalation policy makes the result trustworthy
+end to end:
 
 1. every row carries a PSIS ``khat`` reliability diagnostic;
 2. ``method="auto"`` re-estimates ALL rows failing the 0.7 trust bound
@@ -16,9 +16,8 @@ makes the result trustworthy end to end:
    MAP — adopted only when the diagnostic strictly improves, with the
    attempt on the record either way;
 3. ``final="nested"`` settles whatever still fails as ONE
-   `nested_sampling_batch` device program (round 5; measured 25 hard
-   rows in 29.2 s vs 10.1 s/row sequential — docs/PERF.md)
-   sampling (no importance weights — khat pathology does not apply).
+   `nested_sampling_batch` device program — nested sampling (no
+   importance weights — khat pathology does not apply).
 
 Measured on the real 64-observation batch: 64/64 rows end trustworthy
 or definitively estimated (docs/PERF.md). Same policy from the shell:

@@ -4,7 +4,7 @@ Launched twice by tests/test_multihost.py (process_id 0 and 1), each
 with 2 virtual CPU devices: builds the 4-device global mesh across the
 process boundary, runs ``sample_mh`` (walker-sharded) and ``sample_pt``
 (rung-sharded — its replica exchange is a ``ppermute`` that must cross
-the DCN boundary here) with the SAME seeds/kwargs as a single-process
+the process boundary here) with the SAME seeds/kwargs as a single-process
 reference the parent test computed, and asserts the results are
 seed-identical: sharding distributes rows, it must not change them.
 

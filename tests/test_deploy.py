@@ -30,8 +30,8 @@ def direct(normalizer):
 def test_predict_artifact_roundtrip(tmp_path, direct, rng):
     path = deploy.save_predict_artifact(direct, str(tmp_path / "em.bin"))
     fn = deploy.load_artifact(path)
-    # lowered for serving on TPU even though this process is CPU-only
-    assert set(fn.platforms) == {"cpu", "tpu"}
+    # lowered for serving on a GPU even though this process is CPU-only
+    assert set(fn.platforms) == {"cpu", "cuda"}
     assert fn.n_in == 7
     # symbolic batch: one artifact, several batch sizes, no re-export
     n_bins = direct.normalizer.signal_mean.shape[-1]
@@ -42,6 +42,18 @@ def test_predict_artifact_roundtrip(tmp_path, direct, rng):
         # 2-D input is never squeezed, so this holds for n == 1 too
         assert got.shape == (n, n_bins)
         np.testing.assert_allclose(got, np.atleast_2d(want), atol=1e-3)
+
+
+def test_default_platforms_lower_for_gpu_and_replay_here(tmp_path, direct):
+    """Defaults lower for cpu + cuda with no GPU attached, and the same
+    artifact replays on this (CPU) host."""
+    assert deploy.DEFAULT_PLATFORMS == ("cpu", "cuda")
+    fn = deploy.load_artifact(
+        deploy.save_predict_artifact(direct, str(tmp_path / "em.bin"))
+    )
+    assert fn.platforms == deploy.DEFAULT_PLATFORMS
+    raw = np.full((2, 7), 0.5, np.float32)
+    np.testing.assert_array_equal(fn(raw), direct.predict(raw))
 
 
 def test_single_row_squeeze_convention(tmp_path, direct):

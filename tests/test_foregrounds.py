@@ -108,9 +108,8 @@ def test_flat_prior_is_injection_invariant(tiny):
 
 
 def test_all_backends_agree(tiny):
-    """xla-direct / xla-gram / pallas-direct / pallas-gram / analytic
-    valgrad / autodiff valgrad agree on a MarginalizedNoise (pallas in
-    interpret mode on CPU)."""
+    """direct / gram / analytic valgrad / autodiff valgrad agree on a
+    MarginalizedNoise."""
     em, F, _, _, obs = tiny
     mn = em.marginalize_foreground(25.0, basis=F)
     theta = em.data.par_test[:8]
@@ -120,13 +119,12 @@ def test_all_backends_agree(tiny):
         )
     )
     scale = np.abs(ref).max()
-    for backend in ("xla", "pallas"):
-        for method in ("direct", "gram"):
-            ll = np.asarray(
-                em.loglik_fn(obs, mn, backend=backend, method=method,
-                             precision="highest")(em.params, theta)
-            )
-            assert np.abs(ll - ref).max() < 2e-3 * scale, (backend, method)
+    for method in ("direct", "gram"):
+        ll = np.asarray(
+            em.loglik_fn(obs, mn, method=method,
+                         precision="highest")(em.params, theta)
+        )
+        assert np.abs(ll - ref).max() < 2e-3 * scale, method
     va, ga = em.loglik_and_grad_fn(obs, mn, precision="highest")(
         em.params, theta
     )

@@ -1,10 +1,9 @@
-"""Fused emulate→log-likelihood: parity across backends and tiers.
+"""Emulate→log-likelihood: parity across methods and tiers.
 
-The fused Pallas kernel (obs/noise folded into the last layer, (B,)
-output) must agree with the composed XLA path, which in turn must agree
-with the hand-written predict-then-reduce a user would compose from the
-reference's API (reference ``emulator.py:383-407``). Kernels run in
-interpreter mode on the virtual CPU backend (tests/conftest.py).
+The direct and gram likelihoods (obs/noise folded into the last layer
+for gram) must agree with the hand-written predict-then-reduce a user
+would compose from the reference's API (reference
+``emulator.py:383-407``), and the value+gradient builders with autodiff.
 """
 
 import jax
@@ -14,14 +13,9 @@ import pytest
 
 from tpu21cmvae.data.synthetic import synthetic_params
 from tpu21cmvae.models.direct import DirectEmulator
+from tpu21cmvae.ops.fold import _log_clamp, fold_loglik_constants, noise_scale
 from tpu21cmvae.ops.loglik import make_loglik
 from tpu21cmvae.ops.mlp import mlp_apply
-from tpu21cmvae.ops.pallas.fused_loglik import (
-    fold_loglik_constants,
-    make_fused_loglik,
-    noise_scale,
-)
-from tpu21cmvae.ops.pallas.fused_mlp import _log_clamp
 from tpu21cmvae.utils.config import DirectEmulatorConfig
 
 
@@ -52,8 +46,7 @@ def _composed(model, obs, noise_var, raw):
 def test_xla_loglik_matches_composed(model, obs, splits):
     raw = jnp.asarray(splits.par_test[:33], jnp.float32)
     fn = make_loglik(
-        model.config, model.normalizer, obs, 25.0,
-        backend="xla", precision="highest",
+        model.config, model.normalizer, obs, 25.0, precision="highest",
     )
     got = fn(model.params, raw)
     want = _composed(model, obs, 25.0, raw)
@@ -74,91 +67,37 @@ def test_fold_loglik_constants_exact(model, obs):
     )
 
 
-@pytest.mark.parametrize("batch", [8, 100])
-def test_fused_loglik_matches_xla(model, obs, batch):
-    """Pallas fused (interpret) == composed XLA at the exact tier,
-    including a batch that is not a row-tile multiple and fx == 0 rows."""
-    rng = np.random.default_rng(11)
-    raw = synthetic_params(batch, rng).astype(np.float32)
-    raw[:3, 2] = 0.0  # exercise the fx clamp in-kernel
-    fused = jax.jit(
-        make_fused_loglik(
-            model.config, model.normalizer, obs, 25.0,
-            block_rows=64, interpret=True, precision="highest",
-        )
-    )
-    got = np.asarray(fused(model.params, jnp.asarray(raw)))
-    want = np.asarray(_composed(model, obs, 25.0, jnp.asarray(raw)))
-    assert got.shape == (batch,)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
-
-
-def test_fused_loglik_bf16x3_tier(model, obs):
-    """The in-kernel hi/lo bf16x3 tier stays within the HIGH accuracy
-    class (~1e-4 relative) of the exact-f32 likelihood."""
-    raw = jnp.asarray(model.data.par_test[:64], jnp.float32)
-    fused = jax.jit(
-        make_fused_loglik(
-            model.config, model.normalizer, obs, 25.0,
-            block_rows=64, interpret=True, precision="high",
-        )
-    )
-    got = np.asarray(fused(model.params, raw))
-    want = np.asarray(_composed(model, obs, 25.0, raw))
-    np.testing.assert_allclose(got, want, rtol=2e-3)
-
-
 def test_perbin_noise_variance(model, obs):
-    """A per-bin σ² vector weights bins correctly in both backends."""
+    """A per-bin σ² vector weights bins correctly."""
     nv = np.linspace(4.0, 100.0, model.config.n_bins).astype(np.float32)
     raw = jnp.asarray(model.data.par_test[:16], jnp.float32)
     want = np.asarray(_composed(model, obs, jnp.asarray(nv), raw))
-    for backend in ("xla", "pallas"):
-        fn = jax.jit(
-            make_loglik(
-                model.config, model.normalizer, obs, nv,
-                backend=backend, precision="highest",
-                block_rows=64, interpret=True,
-            )
-            if backend == "pallas"
-            else make_loglik(
-                model.config, model.normalizer, obs, nv,
-                backend="xla", precision="highest",
-            )
-        )
-        got = np.asarray(fn(model.params, raw))
-        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
+    fn = jax.jit(make_loglik(
+        model.config, model.normalizer, obs, nv, precision="highest",
+    ))
+    got = np.asarray(fn(model.params, raw))
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
 
 
 def test_single_row_and_model_entry(model, obs):
-    """1-D input scores as one row; DirectEmulator.loglik_fn wires the
-    pallas backend end to end (interpret via the CPU test platform)."""
+    """1-D input scores as one row through DirectEmulator.loglik_fn,
+    for both methods."""
     raw1 = jnp.asarray(model.data.par_test[0], jnp.float32)
-    fn = model.loglik_fn(obs, 25.0, backend="pallas")
-    out = fn(model.params, raw1)
-    assert out.shape == (1,)
     want = np.asarray(_composed(model, obs, 25.0, raw1))
-    np.testing.assert_allclose(np.asarray(out), want, rtol=2e-3)
-    fn_xla = model.loglik_fn(obs, 25.0, backend="xla")
-    np.testing.assert_allclose(
-        np.asarray(fn_xla(model.params, raw1)), want, rtol=2e-3
-    )
+    for method in ("direct", "gram"):
+        out = model.loglik_fn(obs, 25.0, method=method)(model.params, raw1)
+        assert out.shape == (1,)
+        np.testing.assert_allclose(np.asarray(out), want, rtol=2e-3)
 
 
 def test_bad_backend_raises(model, obs):
-    with pytest.raises(ValueError):
-        make_loglik(model.config, model.normalizer, obs, backend="cuda")
     with pytest.raises(ValueError):
         make_loglik(model.config, model.normalizer, obs, method="cholesky")
 
 
 def test_gram_fold_identity(model, obs):
     """h·G·hᵀ + 2h·u + c == ‖h@W + b‖² exactly (up to f32 rounding)."""
-    from tpu21cmvae.ops.pallas.fused_loglik import (
-        fold_loglik_constants,
-        gram_fold,
-        noise_scale,
-    )
+    from tpu21cmvae.ops.fold import gram_fold
 
     scale = noise_scale(25.0, model.config.n_bins)
     trunk_g, G, u, c = gram_fold(model.params, model.normalizer, obs, scale)
@@ -172,10 +111,9 @@ def test_gram_fold_identity(model, obs):
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
-@pytest.mark.parametrize("backend", ["xla", "pallas"])
-def test_gram_method_matches_direct(model, obs, backend):
+def test_gram_method_matches_direct(model, obs):
     """method='gram' == method='direct' within quadratic-form
-    cancellation error, both backends, odd batch size."""
+    cancellation error, odd batch size, fx == 0 rows."""
     rng = np.random.default_rng(21)
     raw = synthetic_params(77, rng).astype(np.float32)
     raw[:2, 2] = 0.0
@@ -183,8 +121,7 @@ def test_gram_method_matches_direct(model, obs, backend):
     fn = jax.jit(
         make_loglik(
             model.config, model.normalizer, obs, 25.0,
-            backend=backend, method="gram", precision="highest",
-            block_rows=64, interpret=True,
+            method="gram", precision="highest",
         )
     )
     got = np.asarray(fn(model.params, jnp.asarray(raw)))
@@ -214,9 +151,8 @@ def test_two_stage_family_loglik(splits, obs):
 
 
 def test_loglik_is_differentiable(model, obs):
-    """HMC/NUTS need ∇logL: the XLA backends differentiate natively and
-    the pallas backend routes its backward through the XLA twin
-    (custom_vjp) — gradients agree across all backends/methods."""
+    """HMC/NUTS need ∇logL: both methods differentiate natively and
+    their gradients agree."""
     raw = jnp.asarray(model.data.par_test[:5], jnp.float32)
 
     def gradnorm(fn):
@@ -225,56 +161,14 @@ def test_loglik_is_differentiable(model, obs):
 
     ref = gradnorm(
         make_loglik(model.config, model.normalizer, obs, 25.0,
-                    backend="xla", method="direct", precision="highest")
+                    method="direct", precision="highest")
     )
     assert np.isfinite(ref).all() and np.abs(ref).max() > 0
-    for backend, method in (("xla", "gram"), ("pallas", "direct"),
-                            ("pallas", "gram")):
-        g = gradnorm(
-            make_loglik(model.config, model.normalizer, obs, 25.0,
-                        backend=backend, method=method, precision="highest",
-                        block_rows=64, interpret=True)
-        )
-        np.testing.assert_allclose(g, ref, rtol=1e-3, atol=1e-2)
-
-
-def test_fused_mlp_skinny_single_layer():
-    """A 1-layer skinny-input network: the skinny path IS the output
-    layer (no ReLU), with and without the sumsq reduce tail."""
-    from tpu21cmvae.ops.mlp import init_mlp
-    from tpu21cmvae.ops.pallas import make_fused_mlp
-
-    sizes = (7, 33)
-    params = init_mlp(jax.random.key(4), sizes)
-    x = jax.random.normal(jax.random.key(5), (50, 7), jnp.float32)
-    want = np.asarray(mlp_apply(params, x))
-    fused = make_fused_mlp(sizes, block_rows=32, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(fused(params, x)), want, rtol=1e-5, atol=1e-5
+    g = gradnorm(
+        make_loglik(model.config, model.normalizer, obs, 25.0,
+                    method="gram", precision="highest")
     )
-    reduced = make_fused_mlp(sizes, block_rows=32, interpret=True,
-                             reduce="sumsq")
-    np.testing.assert_allclose(
-        np.asarray(reduced(params, x)),
-        np.sum(want**2, axis=-1),
-        rtol=1e-5,
-    )
-
-
-def test_fused_mlp_bf16x3_generic():
-    """Generic fused MLP at precision='high' (manual hi/lo bf16x3) stays
-    within the HIGH accuracy class of the exact XLA forward."""
-    from tpu21cmvae.ops.mlp import init_mlp
-    from tpu21cmvae.ops.pallas import make_fused_mlp
-
-    sizes = (7, 64, 96, 33)
-    params = init_mlp(jax.random.key(1), sizes)
-    x = jax.random.normal(jax.random.key(2), (100, 7), jnp.float32)
-    fused = make_fused_mlp(sizes, block_rows=64, interpret=True, precision="high")
-    got = np.asarray(fused(params, x))
-    want = np.asarray(mlp_apply(params, x))
-    assert got.shape == (100, 33)
-    np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(g, ref, rtol=1e-3, atol=1e-2)
 
 
 def test_fisher_matches_finite_difference(model):
@@ -337,26 +231,9 @@ def test_gram_honors_activation(splits, obs):
     raw = jnp.asarray(splits.par_test[:16], jnp.float32)
     want = np.asarray(_composed(m, obs, 25.0, raw))
     fn = make_loglik(m.config, m.normalizer, obs, 25.0,
-                     backend="xla", method="gram", precision="highest")
+                     method="gram", precision="highest")
     got = np.asarray(fn(m.params, raw))
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=0.5)
-
-
-def test_pallas_ab_tier_strings_work(model, obs):
-    """'high-stacked'/'high-split' must build through make_loglik
-    (regression: the gradient twin crashed on kernel-only tiers)."""
-    raw = jnp.asarray(model.data.par_test[:8], jnp.float32)
-    want = np.asarray(_composed(model, obs, 25.0, raw))
-    for tier in ("high-stacked", "high-split"):
-        fn = make_loglik(
-            model.config, model.normalizer, obs, 25.0,
-            backend="pallas", method="direct", precision=tier,
-            block_rows=8, interpret=True,
-        )
-        got = np.asarray(fn(model.params, raw))
-        np.testing.assert_allclose(got, want, rtol=5e-3, atol=1.0)
-        g = jax.grad(lambda r: jnp.sum(fn(model.params, r)))(raw)
-        assert np.isfinite(np.asarray(g)).all()
 
 
 # -- value+gradient builders (make_loglik_and_grad) ------------------------
@@ -368,8 +245,7 @@ def _ad_reference(model, obs, noise_var, raw):
 
     fn = make_loglik_and_grad(
         model.config, model.normalizer, obs, noise_var,
-        backend="xla", method="direct", variant="autodiff",
-        precision="highest",
+        method="direct", variant="autodiff", precision="highest",
     )
     return fn(model.params, raw)
 
@@ -405,13 +281,12 @@ def test_analytic_gram_grad_matches_autodiff(model, obs, splits):
     raw = jnp.asarray(raw)
     ana = make_loglik_and_grad(
         model.config, model.normalizer, obs, 25.0,
-        backend="xla", method="gram", variant="analytic",
+        method="gram", variant="analytic",
         precision="highest", grad_precision="highest",
     )
     ad = make_loglik_and_grad(
         model.config, model.normalizer, obs, 25.0,
-        backend="xla", method="gram", variant="autodiff",
-        precision="highest",
+        method="gram", variant="autodiff", precision="highest",
     )
     va, ga = ana(model.params, raw)
     vd, gd = ad(model.params, raw)
@@ -431,7 +306,7 @@ def test_analytic_gram_grad_vs_contract(model, obs, splits):
     ana = make_loglik_and_grad(
         model.config, model.normalizer, obs, 25.0,
         precision="highest", grad_precision="highest",
-    )  # defaults: xla + gram + analytic
+    )  # defaults: gram + analytic
     va, ga = ana(model.params, raw)
     vr, gr = _ad_reference(model, obs, 25.0, raw)
     np.testing.assert_allclose(np.asarray(va), np.asarray(vr), rtol=1e-4)
@@ -440,59 +315,9 @@ def test_analytic_gram_grad_vs_contract(model, obs, splits):
     assert (err <= 1e-4 * (norm + norm.mean())).all()
 
 
-@pytest.mark.parametrize("tiers", [("highest", "highest"), ("high", "high"),
-                                   ("high", "default")])
-def test_fused_grad_kernel_matches_analytic(model, obs, splits, tiers):
-    """Pallas value+grad kernel (interpret) == the analytic XLA twin at
-    matching tiers, on a non-tile batch with an fx == 0 row."""
-    from tpu21cmvae.ops.loglik import make_loglik_and_grad
-
-    prec, gprec = tiers
-    raw = np.asarray(splits.par_test[:37], np.float32)
-    raw[5, 2] = 0.0
-    raw = jnp.asarray(raw)
-    fused = make_loglik_and_grad(
-        model.config, model.normalizer, obs, 25.0,
-        backend="pallas", precision=prec, grad_precision=gprec,
-        block_rows=16, interpret=True,
-    )
-    ana = make_loglik_and_grad(
-        model.config, model.normalizer, obs, 25.0,
-        backend="xla", precision=prec, grad_precision=gprec,
-    )
-    vf, gf = fused(model.params, raw)
-    va, ga = ana(model.params, raw)
-    assert vf.shape == (37,) and gf.shape == (37, model.config.n_params)
-    # same tier class ⇒ tight agreement (not identical: stacked vs
-    # separate dots associate differently)
-    np.testing.assert_allclose(np.asarray(vf), np.asarray(va),
-                               rtol=2e-4, atol=2e-3 * np.abs(va).max())
-    scale = np.abs(np.asarray(ga)).max()
-    np.testing.assert_allclose(np.asarray(gf), np.asarray(ga),
-                               rtol=2e-3, atol=2e-3 * scale)
-    assert np.asarray(gf)[5, 2] == 0.0
-
-
-def test_fused_grad_kernel_single_row(model, obs):
-    from tpu21cmvae.ops.loglik import make_loglik_and_grad
-
-    fused = make_loglik_and_grad(
-        model.config, model.normalizer, obs, 25.0,
-        backend="pallas", block_rows=8, interpret=True,
-    )
-    v, g = fused(model.params, jnp.asarray(model.data.par_test[0], jnp.float32))
-    assert v.shape == (1,) and g.shape == (1, model.config.n_params)
-    assert np.isfinite(np.asarray(v)).all() and np.isfinite(np.asarray(g)).all()
-
-
 def test_loglik_and_grad_rejects_bad_combos(model, obs):
     from tpu21cmvae.ops.loglik import make_loglik_and_grad
 
-    with pytest.raises(ValueError, match="gram"):
-        make_loglik_and_grad(
-            model.config, model.normalizer, obs, backend="pallas",
-            method="direct",
-        )
     with pytest.raises(ValueError, match="variant"):
         make_loglik_and_grad(
             model.config, model.normalizer, obs, variant="nope"

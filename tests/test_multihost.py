@@ -1,7 +1,7 @@
 """Two-process ``jax.distributed`` smoke test for ``multihost_init``.
 
-The framework's multi-host story (SURVEY.md §2.3/§5: DCN via
-``jax.distributed.initialize``, ICI collectives within a slice) cannot
+The framework's multi-host story (SURVEY.md §2.3/§5: processes joined
+by ``jax.distributed.initialize``, XLA collectives within a host) cannot
 be exercised on single-host CI by the in-process 8-device mesh — that
 mesh is one process. This test spawns two REAL processes with 2 virtual
 CPU devices each, initializes the distributed runtime, and reduces a
@@ -69,7 +69,7 @@ def test_two_process_sampler_collectives(tmp_path):
     boundary. The parent computes single-process references for
     ``sample_mh`` (walker-sharded) and ``sample_pt`` (rung-sharded —
     its replica exchange rides a ``ppermute`` that here crosses the
-    two-process DCN boundary); the two workers rerun both over the
+    two-process boundary); the two workers rerun both over the
     4-device global mesh with identical seeds and assert seed-identical
     chains. Sharding distributes rows; it must not change them."""
     import numpy as np

@@ -335,7 +335,7 @@ def test_sharded_loglik_matches_single_device(splits):
     weights = replicate(em.params, mesh)
     raw = jnp.asarray(splits.par_test[:64], jnp.float32)
     for method in ("direct", "gram"):
-        fn = em.loglik_fn(obs, 25.0, backend="xla", method=method)
+        fn = em.loglik_fn(obs, 25.0, method=method)
         want = np.asarray(fn(em.params, raw))
         got = fn(weights, shard_batch(raw, mesh))
         assert got.sharding.spec == shard_batch(raw, mesh).sharding.spec

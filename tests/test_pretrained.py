@@ -109,11 +109,10 @@ def test_pretrained_ensemble_golden(refdata):
 
 
 def test_pretrained_bf16_native_golden(refdata):
-    """Round-5 tier-native checkpoints: golden error at the checkpoint's
-    NATIVE tier (on CPU the DEFAULT tier lowers to f32, so this pins
-    the weights' accuracy and the native_precision plumbing; the
-    bf16-tier numbers are the TPU measurements in
-    scripts/finetune_bf16_tpu.json / train_aligned_tpu.json)."""
+    """Tier-native checkpoints: golden error at the checkpoint's NATIVE
+    tier (on CPU the DEFAULT tier lowers to f32, so this pins the
+    weights' accuracy and the native_precision plumbing; what the tier
+    computes on a GPU is measured by chip_smoke.py and bench.py)."""
     import os
 
     import jax.numpy as jnp

@@ -97,13 +97,13 @@ def test_error_identities(sig):
 @settings(**SETTINGS)
 @given(params7)
 def test_fold_constants_equals_transform_then_apply(par):
-    """The fused kernel's weight folding is algebraically exact for any
-    normalizer and any weights (up to float error)."""
+    """The weight folding is algebraically exact for any normalizer and
+    any weights (up to float error)."""
     import jax
     import jax.numpy as jnp
 
     from tpu21cmvae.ops.mlp import init_mlp, mlp_apply
-    from tpu21cmvae.ops.pallas.fused_mlp import _log_clamp, fold_emulator_constants
+    from tpu21cmvae.ops.fold import _log_clamp, fold_emulator_constants
 
     rng = np.random.default_rng(0)
     sig = rng.normal(-50, 30, (8, 16))

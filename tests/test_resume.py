@@ -1,5 +1,5 @@
 """Checkpoint/resume tests: a resumed run must be bit-compatible with an
-uninterrupted one (SURVEY.md §5 — the TPU-VM preemption story the
+uninterrupted one (SURVEY.md §5 — the preemption story the
 reference lacks entirely; its ``save`` raises ``NotImplementedError``,
 reference ``emulator.py:441-442``)."""
 

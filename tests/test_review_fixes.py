@@ -130,22 +130,6 @@ def test_eval_monitor_uses_final_epoch_objective(splits, normalizer):
     assert all(v < 500 for v in hist.val_loss)
 
 
-def test_fused_emulate_single_row_and_no_hidden(splits, normalizer):
-    """1-D parameter input promotes to one row; a zero-hidden-layer MLP
-    folds both normalizations onto its single layer."""
-    from tpu21cmvae.models.direct import DirectEmulator
-    from tpu21cmvae.ops.pallas.fused_mlp import make_fused_emulate
-    from tpu21cmvae.utils.config import DirectEmulatorConfig
-
-    cfg = DirectEmulatorConfig(hidden_dims=())
-    model = DirectEmulator(splits, config=cfg)
-    fused = make_fused_emulate(cfg, model.normalizer, block_rows=8, interpret=True)
-    one = fused(model.params, jnp.asarray(splits.par_test[0], jnp.float32))
-    assert one.shape == (1, splits.n_bins)
-    want = model.predict(splits.par_test[0])
-    np.testing.assert_allclose(np.asarray(one[0]), want, rtol=1e-4, atol=5e-3)
-
-
 def test_scan_no_improvement_keeps_last_params(splits, normalizer):
     """Early stop with zero improving epochs must NOT restore the initial
     weights (host-loop semantics: best_weights stays unset → last params
@@ -238,28 +222,6 @@ def test_retrain_best_ae_honors_config(splits):
     model = retrain_best(res, splits,
                          train_config=dataclasses.replace(fast, epochs=3))
     assert len(model.history["autoencoder"].loss) == 3  # config honored
-
-
-def test_xla_loglik_accepts_kernel_tier_strings(splits, normalizer):
-    """The kernel-only A/B tier strings ("high-stacked"/"high-split")
-    lower to the XLA HIGH tier instead of raising an opaque KeyError."""
-    from tpu21cmvae.models.direct import DirectEmulator
-    from tpu21cmvae.ops.loglik import make_loglik
-    from tpu21cmvae.utils.config import DirectEmulatorConfig
-
-    model = DirectEmulator(
-        splits, config=DirectEmulatorConfig(hidden_dims=(24, 16))
-    )
-    obs = np.asarray(splits.signal_test[0], np.float32)
-    raw = jnp.asarray(splits.par_test[:4], jnp.float32)
-    want = make_loglik(
-        model.config, normalizer, obs, 25.0, precision="high"
-    )(model.params, raw)
-    for tier in ("high-stacked", "high_split"):
-        got = make_loglik(
-            model.config, normalizer, obs, 25.0, precision=tier
-        )(model.params, raw)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want))
 
 
 def test_fisher_forecast_cache_is_bounded(splits):

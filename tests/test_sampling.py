@@ -137,8 +137,8 @@ def test_sampler_resume_from_state(setup, splits):
 
 def test_mh_adaptation_converges_to_target(setup, splits):
     """Dual-averaging scale adaptation lands near the target acceptance
-    (measured: the unadapted default sat at 0.09 on the TPU drive; on
-    this problem a 150-step warmup lands within ~0.02 of 0.3)."""
+    (measured: the unadapted default sat at 0.09 on an earlier drive;
+    on this problem a 150-step warmup lands within ~0.02 of 0.3)."""
     from tpu21cmvae.sampling import sample_mh
 
     model, truth, obs = setup

@@ -278,8 +278,8 @@ def test_tune_autoencoder_halving(splits):
 
 
 def test_best_efficient_prefers_cheaper_mxu_within_slack():
-    """Round-5 throughput-aware selection: within the accuracy slack
-    the cheapest padded-MXU trial wins; outside it, accuracy rules."""
+    """Throughput-aware selection: within the accuracy slack the
+    cheapest padded trial wins; outside it, accuracy rules."""
     from tpu21cmvae.tuner import Trial, TuneResult
     from tpu21cmvae.utils.config import DirectEmulatorConfig
 
@@ -288,8 +288,8 @@ def test_best_efficient_prefers_cheaper_mxu_within_slack():
         DirectEmulatorConfig(hidden_dims=(256, 384, 256, 128)),
         0.170, 0.0, 10, 1.0, 300000,
     )
-    # the reference stack pays ~78% more padded-MXU work than the
-    # aligned one (288->384, 352->384, 224->256 at the 128 lane)
+    # the reference stack pays ~78% more padded work than the
+    # aligned one (288->384, 352->384, 224->256 at a 128-wide tile)
     assert ref.padded_flops_per_row > 1.7 * ali.padded_flops_per_row
     res = TuneResult([ref, ali])
     assert res.best is ref

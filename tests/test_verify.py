@@ -90,3 +90,22 @@ def test_cli_verify_smoke(capsys):
         assert "verification report" in out
         loaded = json.loads(open(f"{d}/r.json").read())
         assert loaded["ok"]
+
+
+def test_deploy_check_asks_for_this_backends_platform(splits, normalizer,
+                                                      monkeypatch):
+    """The deploy check passes where the artifact serves (the CPU here,
+    lowered by default for cpu + cuda) and fails for a platform the
+    artifact was not lowered for — it never asks for one named host."""
+    import jax
+
+    from tpu21cmvae.models.direct import DirectEmulator
+    from tpu21cmvae.utils.config import DirectEmulatorConfig
+    from tpu21cmvae.verify import check_deploy_artifact
+
+    model = DirectEmulator(normalizer=normalizer,
+                           config=DirectEmulatorConfig(hidden_dims=(16,)))
+    assert check_deploy_artifact(splits, model).status == "PASS"
+    monkeypatch.setattr(jax.export, "default_export_platform",
+                        lambda: "rocm")
+    assert check_deploy_artifact(splits, model).status == "FAIL"

@@ -1,4 +1,4 @@
-"""tpu21cmvae — a TPU-native JAX framework for global 21-cm signal emulation.
+"""tpu21cmvae — a JAX framework for global 21-cm signal emulation.
 
 A ground-up rebuild of the capabilities of christianhbye/21cmVAE
 (``VeryAccurateEmulator``, reference at ``/root/reference``): emulate the
@@ -9,8 +9,8 @@ an autoencoder-based emulator, and a variational (VAE) emulator.
 Unlike the TensorFlow/Keras reference, everything here is pure functional
 JAX: preprocessing and models are pytrees + pure functions, training is a
 jit-compiled ``lax.scan`` epoch loop, inference is a single fused device
-call (optionally a Pallas TPU kernel) that is vmapped over MCMC-scale
-batches and sharded over a ``jax.sharding.Mesh``.
+call that is vmapped over MCMC-scale batches and sharded over a
+``jax.sharding.Mesh``.
 
 Design departures from the reference (deliberate):
   * No import-time I/O. The reference downloads a ~300 MB dataset from
@@ -25,8 +25,8 @@ Design departures from the reference (deliberate):
   * ``save`` is implemented (the reference raises ``NotImplementedError``,
     ``emulator.py:441-442``).
 
-The package name is a valid Python identifier; module names cannot start
-with a digit, hence ``tpu21cmvae`` rather than ``21cmvae_tpu``.
+The package name is a valid Python identifier (module names cannot start
+with a digit).
 """
 
 __version__ = "0.1.0"

@@ -19,7 +19,7 @@ The reference has no CLI — every workflow lives in notebook cells
     fit        on-device multi-start maximum-likelihood parameter fit
                for an observed spectrum; writes results as .npz
     advi       fast approximate posterior (full-rank Gaussian ADVI
-               over the fused value+gradient path)
+               over the analytic value+gradient path)
     profile    profile likelihood of one parameter with Wilks 68/95%
                confidence intervals (grid of constrained refits as
                one device program)
@@ -819,9 +819,9 @@ def main(argv=None):
                    help="with --obs: export the fused value+gradient "
                         "likelihood (the HMC/NUTS inner loop for "
                         "external gradient-based samplers)")
-    p.add_argument("--platforms", default="cpu,tpu",
+    p.add_argument("--platforms", default="cpu,cuda",
                    help="comma-separated lowering targets (default "
-                        "cpu,tpu — lowering for tpu needs no chip)")
+                        "cpu,cuda — lowering needs no accelerator)")
     p.set_defaults(fn=cmd_export_artifact)
 
     p = sub.add_parser(
@@ -1086,4 +1086,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from tpu21cmvae.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

@@ -16,7 +16,7 @@ simulated observations, one stacked-observation chain
 (:meth:`DirectEmulator.sample_posterior_batch` /
 :func:`tpu21cmvae.ops.loglik.make_loglik_multi`) that advances all
 ``n_sims`` posteriors' walkers in every fused likelihood batch — the
-mega-batch shape the MXU wants. Ranks use each simulation's FINAL kept
+mega-batch shape that fills the device. Ranks use each simulation's FINAL kept
 step across walkers: the MH/HMC ensembles evolve walkers independently
 (no cross-walker moves), so after warmup those are approximately
 independent posterior draws, which is exactly what SBC's uniformity

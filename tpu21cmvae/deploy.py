@@ -9,7 +9,7 @@ self-contained binary: :func:`jax.export.export` serializes the whole
 jitted chain — ``par_transform → MLP → unpreproc`` with the trained
 weights and every normalization constant folded in — as a versioned
 StableHLO program with a **symbolic batch dimension**, lowered for
-multiple platforms at once (TPU and CPU by default).
+multiple platforms at once (CPU and CUDA GPUs by default).
 
 The artifact replays on any machine with a compatible JAX install::
 
@@ -19,8 +19,8 @@ The artifact replays on any machine with a compatible JAX install::
 
 — no tpu21cmvae import, no checkpoint file, no dataset, no Python model
 code. That is the serving story the HTTP layer (:mod:`tpu21cmvae.serve`)
-can't give a non-Python consumer, and the TPU-native analogue of
-shipping a TensorFlow SavedModel.
+can't give a non-Python consumer, and the JAX analogue of shipping a
+TensorFlow SavedModel.
 
 Caveats stated up front:
 
@@ -37,9 +37,6 @@ Caveats stated up front:
   ``method="direct"``, and for the gram form ~2e-6 on the shipped
   trained checkpoint / ~1e-4 worst-case on cancellation-hostile random
   weights — far inside every tier gate in ``bench_mcmc.py``.
-- The Pallas backends are not exportable (Mosaic custom calls pin a
-  runtime); exports always use the XLA path, which is also the
-  measured-fastest path at the accuracy-gated tiers (docs/PERF.md).
 """
 
 from __future__ import annotations
@@ -54,9 +51,9 @@ from jax import export as _jxe
 from tpu21cmvae.utils.io import atomic_write
 
 #: Platforms every artifact is lowered for unless overridden. Lowering
-#: for "tpu" does not need a TPU attached — it happens at the StableHLO
-#: level — so CI (CPU-only) produces artifacts that serve on real chips.
-DEFAULT_PLATFORMS: Tuple[str, ...] = ("cpu", "tpu")
+#: for "cuda" does not need a GPU attached — it happens at the StableHLO
+#: level — so CI (CPU-only) produces artifacts that serve on GPU hosts.
+DEFAULT_PLATFORMS: Tuple[str, ...] = ("cpu", "cuda")
 
 
 def _export_batched(fn, n_in: int, platforms: Sequence[str], dtype=np.float32):
@@ -118,8 +115,7 @@ def export_loglik(
     dataset, signature ``(b, n_params) float32 → (b,) float32``.
     ``loglik_kwargs`` forward to the family's ``loglik_fn`` (``method=``,
     ``precision=``, prior/foreground/noise-marginalization options —
-    whatever the family supports). The Pallas backend is refused at
-    lowering time by JAX itself; leave ``backend`` at its XLA default.
+    whatever the family supports).
     """
     ll = model.loglik_fn(obs, noise_var, **loglik_kwargs)
     weights = model.params

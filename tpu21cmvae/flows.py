@@ -26,7 +26,7 @@ ADVI/HMC — only first-order emulator gradients, no Hessians
 (reference users differentiate nothing: the reference feeds external
 CPU samplers, ``README.rst:9-11``).
 
-TPU shape: the whole fit is ONE ``lax.scan`` device program
+Device shape: the whole fit is ONE ``lax.scan`` device program
 (``n_steps`` × one batched valgrad call on ``n_mc`` draws + a few
 7-wide coupling MLPs — negligible next to the emulator trunk); the
 evidence sweep is one batched value call. Everything is fixed-shape,
@@ -132,7 +132,7 @@ def _base_chol(theta):
 def _coupling_st(layer, m, y):
     """Conditioner: the frozen half ``m·y`` → per-dim (log-scale,
     shift) for the moving half. One hidden tanh layer — at 7 input
-    dims this is VPU noise next to the emulator trunk."""
+    dims this is noise next to the emulator trunk."""
     h = jnp.tanh((y * m) @ layer["w1"] + layer["b1"])
     st = h @ layer["w2"] + layer["b2"]
     n = y.shape[-1]

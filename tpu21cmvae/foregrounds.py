@@ -22,15 +22,15 @@ marginal likelihood over ``a`` is itself Gaussian in the residual
     P = N⁻¹ − N⁻¹ F (FᵀN⁻¹F + S⁻¹)⁻¹ FᵀN⁻¹   (Woodbury; S⁻¹ = 0 flat)
 
 i.e. still a quadratic form, now with a rank-deficient precision ``P``
-that projects out the foreground directions. TPU-first consequence:
+that projects out the foreground directions. Consequence:
 factor ``P = R Rᵀ`` ONCE on the host (eigendecomposition, float64) and
 fold ``R`` into the emulator's linear output layer exactly like the
 diagonal noise whitening
-(:func:`tpu21cmvae.ops.pallas.fused_loglik.fold_loglik_constants`):
+(:func:`tpu21cmvae.ops.fold.fold_loglik_constants`):
 ``W̃ = W @ R``. Every likelihood path inherits marginalization with
 **zero extra per-sample FLOPs** in gram form (``G = W̃W̃ᵀ`` is the same
-224×224 matmul) — the XLA gram path, the analytic gradient, both fused
-Pallas kernels, and the stacked-observation form all accept a
+224×224 matmul) — the gram path, the analytic gradient and the
+stacked-observation form all accept a
 :class:`MarginalizedNoise` wherever they accept ``noise_var``. A
 7-parameter chain with a 5-term foreground runs at the throughput of a
 7-parameter chain without one (docs/PERF.md).

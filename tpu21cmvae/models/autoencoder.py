@@ -7,7 +7,7 @@ relative-MSE reconstruction loss, plus a params→latent MLP trained with
 plain MSE against frozen-encoder latents, composed with the decoder for
 prediction (Appendix A of Bye et al. 2022).
 
-TPU-first differences: encoder/decoder/emulator are three weight pytrees
+Design differences: encoder/decoder/emulator are three weight pytrees
 with one pure apply each; both training stages run the jitted epoch loop;
 prediction is a single fused device call; everything checkpoints with the
 Normalizer bundled.

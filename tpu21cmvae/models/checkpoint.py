@@ -7,7 +7,7 @@ statistics are recomputed from (reference ``preprocess.py:88-101``). Here
 a checkpoint is a single ``.npz`` bundling any pytree of arrays — model
 weights, the Normalizer constants, optimizer state, epoch counter, RNG
 key — plus a JSON-encoded structure spec and user metadata, written
-atomically (temp file + ``os.replace``) so a preempted TPU-VM job never
+atomically (temp file + ``os.replace``) so a preempted job never
 sees a torn file.
 """
 

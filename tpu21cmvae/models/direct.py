@@ -1,7 +1,7 @@
 """The flagship direct emulator: 7 astrophysical parameters → δT(z).
 
 Capability parity with the reference's ``DirectEmulator``
-(reference ``emulator.py:207-442``) redesigned TPU-first:
+(reference ``emulator.py:207-442``) redesigned as pure JAX functions:
 
 * the model is a weights pytree + a single pure prediction function
   ``unpreproc ∘ mlp ∘ par_transform`` with all normalization constants
@@ -183,19 +183,16 @@ class DirectEmulator:
         (:mod:`tpu21cmvae.parallel`) and benchmarking.
 
         ``precision``: matmul tier. Default (None) is the HIGHEST-precision
-        contract path (exact f32 — 6 bf16 MXU passes on TPU).
-        ``jax.lax.Precision.HIGH`` is the safe turbo tier: 3-pass bf16x3
-        matmuls with f32 accumulation, ~1.7× faster and within ~1e-4
-        relative-to-amplitude of the contract path on trained weights
-        (≈3 % of the 0.34 % accuracy budget; measured on v5e).
-        ``Precision.DEFAULT`` (single-pass bf16) is another ~2.5× faster
-        but degrades to ~1.4e-2 on trained weights — outside the accuracy
-        contract; bench.py's trained-model gate rejects it. The bf16
-        escape hatch is a TIER-NATIVE checkpoint — one fine-tuned with
-        the DEFAULT forward in its loss (:meth:`loss_fn`) so the golden
-        accuracy numbers hold AT the fast tier; such a checkpoint
-        records ``native_precision`` and ``precision="native"`` resolves
-        to it (contract path when unset).
+        contract path (exact f32 on every backend).
+        ``jax.lax.Precision.HIGH`` and ``DEFAULT`` are the fast tiers;
+        what they compute is the backend's choice (on an NVIDIA GPU, TF32
+        tensor-core dots), so ``bench.py`` gates each against the
+        contract path on the converged checkpoint (≤ 1.5e-3 relative to
+        amplitude) and ``chip_smoke.py`` prints the measured deviation
+        per tier. A TIER-NATIVE checkpoint — one fine-tuned with a fast
+        forward in its loss (:meth:`loss_fn`) so the golden accuracy
+        numbers hold AT that tier — records ``native_precision``, and
+        ``precision="native"`` resolves to it (contract path when unset).
         """
         if precision == "native":
             precision = self.native_precision
@@ -208,7 +205,6 @@ class DirectEmulator:
         obs,
         noise_var=1.0,
         *,
-        backend: str = "xla",
         method: str = "gram",
         precision=None,
         memo: bool = True,
@@ -217,25 +213,18 @@ class DirectEmulator:
         against an observed signal — the MCMC inner loop as one device
         call (see :mod:`tpu21cmvae.ops.loglik`).
 
-        Defaults are the measured-fastest gate-passing configuration on
-        v5e (docs/PERF.md: xla+gram+bf16x3 ≈ 64M loglik/s vs 33M for the
-        exact composed path; the fused Pallas kernel is within ~15 % and
-        available via ``backend="pallas"``). ``method="gram"`` collapses
-        the output layer into a quadratic form; ``method="direct"``
-        evaluates the full network.
+        ``method="gram"`` (default) collapses the output layer into a
+        quadratic form; ``method="direct"`` evaluates the full network.
+        Measured rates per method and tier are in docs/PERF.md.
 
-        **Accuracy contract of the default tier** (measured on the
-        converged checkpoint, docs/PERF.md MCMC table): far from the
-        posterior mode the error is relative, ≤ ~9e-4 of |logL|; NEAR
-        the mode the absolute error reaches **|ΔlogL| ≈ 0.43** — a
-        deterministic, smooth perturbation of the log-density below an
-        MH sampler's practical noise floor (it distorts acceptance by
-        ≤ e^±0.43 on proposals that were already coin-flips), but NOT
-        negligible for uses that read absolute log-density values
-        (evidence estimation, sharp likelihood-ratio tests). For those,
-        pass ``precision="contract"`` (alias of ``"highest"``: exact-f32
-        matmuls, near-mode error ≤ ~5e-3 for gram, 0 for
-        ``method="direct"``) at ~55 % of the default's throughput.
+        **Accuracy of the default tier** (``Precision.HIGH``): its
+        arithmetic is the backend's. ``bench_mcmc.py`` holds a tier to
+        |ΔlogL| ≤ 0.25 + 1.5e-3·depth against the exact path on the
+        converged checkpoint; on an H100 the default runs TF32 and
+        FAILS that gate (docs/PERF.md), so pass ``precision="contract"``
+        (alias of ``"highest"``: exact-f32 matmuls) wherever the
+        log-density values matter — evidence, likelihood ratios,
+        posteriors that must match the exact likelihood.
         """
         from tpu21cmvae.models._memo import memo_program, noise_key
         from tpu21cmvae.ops.loglik import make_loglik
@@ -243,15 +232,13 @@ class DirectEmulator:
         return memo_program(
             self,
             ("loglik", np.asarray(obs, np.float32),
-             noise_key(noise_var), backend, method,
-             str(precision)),
+             noise_key(noise_var), method, str(precision)),
             lambda: jax.jit(
                 make_loglik(
                     self.config,
                     self.normalizer,
                     obs,
                     noise_var,
-                    backend=backend,
                     method=method,
                     precision=precision,
                 )
@@ -264,7 +251,6 @@ class DirectEmulator:
         obs,
         noise_var=1.0,
         *,
-        backend: str = "xla",
         method: str = "gram",
         precision=None,
         grad_precision=None,
@@ -286,7 +272,7 @@ class DirectEmulator:
         return memo_program(
             self,
             ("valgrad", np.asarray(obs, np.float32),
-             noise_key(noise_var), backend, method,
+             noise_key(noise_var), method,
              str(precision), str(grad_precision)),
             lambda: jax.jit(
                 make_loglik_and_grad(
@@ -294,7 +280,6 @@ class DirectEmulator:
                     self.normalizer,
                     obs,
                     noise_var,
-                    backend=backend,
                     method=method,
                     precision=precision,
                     grad_precision=grad_precision,
@@ -398,9 +383,9 @@ class DirectEmulator:
         """Posteriors for ``O`` observed spectra as ONE device program —
         survey-scale inference. Walkers for every observation stack
         observation-major into one ``(O · n_walkers)`` batch, so each
-        chain step is a single mega-batch likelihood call (the MXU-
-        saturating shape; per-observation sequential runs waste the
-        chip at small walker counts). ``n_walkers`` is PER OBSERVATION.
+        chain step is a single mega-batch likelihood call (the shape
+        that fills the device; per-observation sequential runs waste it
+        at small walker counts). ``n_walkers`` is PER OBSERVATION.
         Returns a :class:`~tpu21cmvae.sampling.BatchSampleResult`.
 
         ``sampler``: ``"mh"`` (default), ``"hmc"`` or ``"nuts"`` — the
@@ -451,10 +436,10 @@ class DirectEmulator:
         (reference ``README.rst:9-11``), which it leaves to external
         samplers at ~25 likelihood evaluations/s. Here the entire chain
         runs on device (:mod:`tpu21cmvae.sampling`): ``sampler="mh"``
-        uses the bench-selected fused likelihood, ``sampler="ensemble"``
+        uses the gram likelihood, ``sampler="ensemble"``
         the affine-invariant stretch move (emcee's algorithm, no tuning
-        knobs), ``sampler="hmc"`` (default) the fused value+gradient
-        kernel, with dual-averaging step adaptation, and
+        knobs), ``sampler="hmc"`` (default) the analytic value+gradient
+        path, with dual-averaging step adaptation, and
         ``sampler="chees"`` the same gradient kernel with the
         trajectory length ALSO adapted
         (:func:`~tpu21cmvae.sampling.sample_chees` — the
@@ -529,9 +514,8 @@ class DirectEmulator:
                 f"sampler must be 'mh', 'ensemble', 'hmc', 'chees', "
                 f"'nuts', 'pt' or 'smc'; got {sampler!r}"
             )
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
         valgrad = self.loglik_and_grad_fn(
-            obs, noise_var, backend=backend, grad_precision="default"
+            obs, noise_var, grad_precision="default"
         )
         if sampler == "chees":
             from tpu21cmvae.sampling import sample_chees
@@ -624,15 +608,13 @@ class DirectEmulator:
         if method == "flow":
             from tpu21cmvae.flows import evidence_with_flow
 
-            # same valgrad selection as fit_flow: the fit's gradient
-            # tier only shapes the PROPOSAL (the IS weights use the
-            # contract-tier value fn), so take the fast path on TPU
-            backend = "pallas" if jax.default_backend() == "tpu" else "xla"
+            # same valgrad as fit_flow: the fit's gradient tier only
+            # shapes the PROPOSAL (the IS weights use the contract-tier
+            # value fn), so the fast backward tier is safe here
             return evidence_with_flow(
                 self.loglik_fn(obs, noise_var, precision="contract"),
                 self.loglik_and_grad_fn(
-                    obs, noise_var, backend=backend,
-                    grad_precision="default",
+                    obs, noise_var, grad_precision="default",
                 ),
                 self.params, bounds=bounds, **kwargs,
             )
@@ -668,8 +650,7 @@ class DirectEmulator:
         for a BATCH of observed spectra, every stage batched over
         observations (:func:`tpu21cmvae.sampling.laplace_evidence_multi`
         over the stacked gram likelihood at the exact tier — the gram
-        trunk is shared across observations; measured 64 evidences in
-        33 s warm on v5e, ≈0.5 s each, docs/PERF.md), with the khat
+        trunk is shared across observations), with the khat
         escalation loop CLOSED: under the default ``method="auto"``,
         any row whose PSIS ``khat`` is not below ``khat_threshold``
         (0.7 — the Vehtari trust bound) is automatically re-estimated
@@ -691,10 +672,8 @@ class DirectEmulator:
         from tpu21cmvae.sampling import laplace_evidence_multi_auto
 
         obs_batch = np.atleast_2d(np.asarray(obs_batch, np.float32))
-        # same valgrad selection as fit_flow: the fit's gradient tier
-        # only shapes the flow PROPOSAL (IS weights use the contract-
-        # tier value fn), so take the fast path on TPU
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
+        # same valgrad as fit_flow: the fit's gradient tier only shapes
+        # the flow PROPOSAL (IS weights use the contract-tier value fn)
         return laplace_evidence_multi_auto(
             self.loglik_multi_fn(obs_batch, noise_var,
                                  precision="contract"),
@@ -706,8 +685,7 @@ class DirectEmulator:
                 obs_batch[i], noise_var, precision="contract"
             ),
             row_valgrad=lambda i: self.loglik_and_grad_fn(
-                obs_batch[i], noise_var, backend=backend,
-                grad_precision="default",
+                obs_batch[i], noise_var, grad_precision="default",
             ),
             rows_loglik=lambda idx: self.loglik_multi_fn(
                 obs_batch[np.asarray(idx)], noise_var,
@@ -744,9 +722,8 @@ class DirectEmulator:
         """
         from tpu21cmvae.sampling import fit_map
 
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
         valgrad = self.loglik_and_grad_fn(
-            obs, noise_var, backend=backend, grad_precision="default"
+            obs, noise_var, grad_precision="default"
         )
         return fit_map(valgrad, self.params, bounds=bounds, **kwargs)
 
@@ -761,9 +738,8 @@ class DirectEmulator:
         ``result.interval(0.68)`` / ``.interval(0.95)``."""
         from tpu21cmvae.sampling import profile_likelihood
 
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
         valgrad = self.loglik_and_grad_fn(
-            obs, noise_var, backend=backend, grad_precision="default"
+            obs, noise_var, grad_precision="default"
         )
         return profile_likelihood(
             valgrad, self.params, index, grid, bounds=bounds, **kwargs
@@ -781,9 +757,8 @@ class DirectEmulator:
         Gaussian shape restriction."""
         from tpu21cmvae.vi import fit_advi
 
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
         valgrad = self.loglik_and_grad_fn(
-            obs, noise_var, backend=backend, grad_precision="default"
+            obs, noise_var, grad_precision="default"
         )
         return fit_advi(valgrad, self.params, bounds=bounds, **kwargs)
 
@@ -801,9 +776,8 @@ class DirectEmulator:
         adaptive-t Laplace stage cannot reach (docs/PERF.md)."""
         from tpu21cmvae.flows import fit_flow
 
-        backend = "pallas" if jax.default_backend() == "tpu" else "xla"
         valgrad = self.loglik_and_grad_fn(
-            obs, noise_var, backend=backend, grad_precision="default"
+            obs, noise_var, grad_precision="default"
         )
         return fit_flow(valgrad, self.params, bounds=bounds, **kwargs)
 
@@ -837,8 +811,7 @@ class DirectEmulator:
         fiducial or ``(n, 7, 7), (n, 7)`` for a batch. The compiled
         program is cached per noise spec (bounded LRU, 8 entries — same
         policy as the serve layer's likelihood cache), so calling this
-        in a loop over fiducials does not retrace (compile is ~20-60 s
-        on a remote-attached TPU).
+        in a loop over fiducials does not retrace.
         """
         import collections
 
@@ -887,12 +860,12 @@ class DirectEmulator:
 
         ``precision``: matmul tier of the TRAINING forward (default
         HIGHEST — the contract path). Passing
-        ``jax.lax.Precision.DEFAULT`` trains *through* the single-pass
-        bf16 MXU forward (quantization-aware fine-tuning): the weights
-        converge to a point whose bf16 forward — not its f32 forward —
+        ``jax.lax.Precision.DEFAULT`` trains *through* the backend's
+        fast-tier forward (quantization-aware fine-tuning): the weights
+        converge to a point whose fast forward — not its f32 forward —
         minimizes the loss, which is what makes a tier-native
         checkpoint competitive at inference (see
-        ``scripts/finetune_bf16_tpu.py`` and docs/PERF.md)."""
+        ``scripts/finetune_bf16.py`` and docs/PERF.md)."""
         norm = self.normalizer
         activation = self.config.activation
         scaled_mean = norm.scaled_mean

@@ -4,10 +4,10 @@ The reference emulator is a point estimator — it reports test-set error
 statistics (reference ``emulator.py:409-439``) but gives a user no
 per-prediction uncertainty. The standard fix for deterministic nets is
 a deep ensemble: train N replicas from different seeds and read the
-spread. TPU-native design: the members' weight pytrees are STACKED along
+spread. Design: the members' weight pytrees are STACKED along
 a leading axis and the pure predict function is ``vmap``-ed over it, so
 an N-member ensemble prediction is one device call of N-fold batched
-matmuls (MXU-friendly; N=5 of the flagship is still <2 M params) — not
+matmuls (N=5 of the flagship is still <2 M params) — not
 N sequential model calls.
 """
 
@@ -199,7 +199,6 @@ class DeepEnsemble:
         obs,
         noise_var=1.0,
         *,
-        backend: str = "xla",
         method: str = "gram",
         precision=None,
         memo: bool = True,
@@ -223,12 +222,12 @@ class DeepEnsemble:
         statistics.)
 
         Implementation: the member axis rides a ``vmap`` over the
-        bench-selected single-model likelihood
+        single-model likelihood
         (:func:`tpu21cmvae.ops.loglik.make_loglik`), so an M-member
         mixture over a B-row batch is ONE device call of member-batched
         matmuls. Tier contract per member is as documented on
-        :meth:`DirectEmulator.loglik_fn` (near-mode |ΔlogL| ≈ 0.43 at
-        the default tier; ``precision="contract"`` for absolute
+        :meth:`DirectEmulator.loglik_fn` (the default tier fails
+        bench_mcmc.py's ΔlogL gate on an H100; ``precision="contract"`` for absolute
         log-density uses — the logsumexp is dominated by the best
         member, so member-level bounds carry through to the mixture).
         """
@@ -238,7 +237,7 @@ class DeepEnsemble:
         def build():
             member = make_loglik(
                 self.config, self.normalizer, obs, noise_var,
-                backend=backend, method=method, precision=precision,
+                method=method, precision=precision,
             )
             vll = jax.vmap(member, in_axes=(0, None))
             log_m = float(np.log(len(self.members)))
@@ -253,8 +252,7 @@ class DeepEnsemble:
         return memo_program(
             self,
             ("loglik", np.asarray(obs, np.float32),
-             noise_key(noise_var), backend, method,
-             str(precision)),
+             noise_key(noise_var), method, str(precision)),
             build,
             memo=memo,
         )
@@ -264,7 +262,6 @@ class DeepEnsemble:
         obs,
         noise_var=1.0,
         *,
-        backend: str = "xla",
         method: str = "gram",
         precision=None,
         grad_precision=None,
@@ -282,8 +279,8 @@ class DeepEnsemble:
         def build():
             member = make_loglik_and_grad(
                 self.config, self.normalizer, obs, noise_var,
-                backend=backend, method=method,
-                precision=precision, grad_precision=grad_precision,
+                method=method, precision=precision,
+                grad_precision=grad_precision,
             )
             vvg = jax.vmap(member, in_axes=(0, None))
             log_m = float(np.log(len(self.members)))
@@ -299,7 +296,7 @@ class DeepEnsemble:
         return memo_program(
             self,
             ("valgrad", np.asarray(obs, np.float32),
-             noise_key(noise_var), backend, method,
+             noise_key(noise_var), method,
              str(precision), str(grad_precision)),
             build,
             memo=memo,

@@ -21,13 +21,12 @@ here already computes:
 
     log L(θ) = const − (α + n_eff/2) · log(β + q(θ)/2)
 
-TPU-first consequence: because every backend returns
+Consequence: because every likelihood path returns
 ``−½·q + log_norm``, the marginalization is an exact scalar
 post-transform of the EXISTING likelihood value — ``q`` is recovered as
-``2·(log_norm − logL)`` and re-scored. Zero new kernels: the XLA gram
-path, the analytic gram backward, both fused Pallas kernels, the
-stacked-observation form, and the two-stage families' generic path all
-inherit it (the gradient transform is the exact chain rule
+``2·(log_norm − logL)`` and re-scored. Nothing new per path: the gram
+path, the analytic gram backward, the stacked-observation form, and
+the two-stage families' generic path all inherit it (the gradient transform is the exact chain rule
 ``∇logL_t = (α + n_eff/2)/(β + q/2) · ∇logL``, a per-row rescale).
 
 Composition with foreground marginalization is exact: wrap a
@@ -76,8 +75,8 @@ __all__ = [
 #: floor scales WITH ``a`` so the marginal's exact invariance under a
 #: rescaling of the base noise shape (a θ-independent logL shift) is
 #: preserved down to q ~ 1e-30·a — ~20 orders below any physical
-#: residual. NB: an absolute floor must be a NORMAL f32 — the TPU
-#: flushes subnormals to zero, which is how the original
+#: residual. NB: an absolute floor must be a NORMAL f32 — accelerator
+#: code flushes subnormals to zero, which is how the original
 #: ``max(q, 1.2e-38)`` floor silently became ``log(0)``.
 _FLOOR_REL = 1e-30
 
@@ -216,7 +215,7 @@ class ScaleMarginalNoise:
         """Value+gradient companion of :meth:`wrap_value` for a base
         ``(params, raw) → (logL (B,), ∇ (B, P))``: the chain rule is a
         per-row rescale ``∇logL_t = a/(β + q/2)·∇logL`` (d q = −2·d logL),
-        so the analytic/fused gradient backends carry over exactly."""
+        so the analytic and autodiff gradients carry over exactly."""
         import jax.numpy as jnp
 
         ln0 = self.base_log_norm()
@@ -339,8 +338,8 @@ def marginalize_noise_scale(
     ``p(σ²) ∝ 1/σ²`` (posterior exact; absolute evidence arbitrary up
     to the improper prior's constant).
 
-    Pass the result anywhere ``noise_var`` is accepted; all backends
-    (XLA, both fused Pallas kernels, analytic gradients,
+    Pass the result anywhere ``noise_var`` is accepted; every path
+    (direct and gram likelihoods, analytic gradients,
     stacked-observation, samplers, evidence, the HTTP layer) inherit
     the marginalization as an exact scalar post-transform.
     """

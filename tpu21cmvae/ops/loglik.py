@@ -7,17 +7,12 @@ The reference leaves this composition to the user at ~40 ms per signal
 (reference ``emulator.py:383-407``, ``README.rst:11``); here it is a
 first-class fused device function over mega-batches.
 
-Two backends with identical semantics:
-
-* ``"xla"`` — the emulator's predict chain composed with the reduction
-  in one jittable program (XLA fuses the elementwise work; the (B, 451)
-  matmul output still round-trips HBM before the reduction).
-* ``"pallas"`` — the whole chain as one kernel with the observation and
-  noise folded into the last layer's weights and a (B,) output
-  (:mod:`tpu21cmvae.ops.pallas.fused_loglik`) — the predicted signals
-  never leave VMEM.
-
-Measured numbers for both on v5e are in docs/PERF.md (bench_mcmc.py).
+The emulator's predict chain and the residual reduction compile as one
+jittable XLA program. ``method="gram"`` additionally folds the
+observation, the noise whitening and the linear output layer into a
+quadratic form (:mod:`tpu21cmvae.ops.fold`), so the (B, 451) signal
+block is never materialized. Measured rates are in docs/PERF.md
+(``bench_mcmc.py``).
 """
 
 from __future__ import annotations
@@ -40,7 +35,7 @@ def _resid_quad(noise_var, n_bins: int, precision=None):
     projects the foreground modes out — see that module). The shared
     residual reduction of every non-folded likelihood path here."""
     from tpu21cmvae.foregrounds import MarginalizedNoise
-    from tpu21cmvae.ops.pallas.fused_loglik import noise_log_norm
+    from tpu21cmvae.ops.fold import noise_log_norm
 
     if isinstance(noise_var, MarginalizedNoise):
         r_mat = jnp.asarray(noise_var.whiten, jnp.float32)
@@ -72,7 +67,7 @@ def make_loglik_from_predict(predict_fn, obs, noise_var=1.0):
     signals`` prediction function — the two-stage families
     (:class:`AutoEncoderEmulator`, :class:`VAEEmulator`) plug their
     ``predict_fn`` in here. The direct family should prefer
-    :func:`make_loglik`, whose folded/gram/Pallas specializations only
+    :func:`make_loglik`, whose folded/gram specializations only
     exist for a single-MLP forward. ``noise_var``: scalar, per-bin σ²,
     a :class:`~tpu21cmvae.foregrounds.MarginalizedNoise`, or a
     :class:`~tpu21cmvae.noisescale.ScaleMarginalNoise`."""
@@ -98,7 +93,7 @@ def make_loglik_and_grad_from_predict(predict_fn, obs, noise_var=1.0):
     signals`` prediction function (the two-stage families' sampler
     path) — autodiff with a ones-cotangent VJP (each row's logL depends
     only on its own row). The direct family's
-    :func:`make_loglik_and_grad` has faster analytic/fused variants.
+    :func:`make_loglik_and_grad` has a faster analytic variant.
     """
     base = make_loglik_from_predict(predict_fn, obs, noise_var)
 
@@ -117,11 +112,8 @@ def make_loglik(
     obs,
     noise_var=1.0,
     *,
-    backend: str = "xla",
     method: str = "direct",
     precision=None,
-    block_rows: Optional[int] = None,
-    interpret: Optional[bool] = None,
 ):
     """Build ``fn(params, raw_params) → (B,)`` Gaussian log-likelihoods.
 
@@ -132,19 +124,19 @@ def make_loglik(
     ``method="direct"`` evaluates the full network and reduces the
     residual; ``method="gram"`` collapses the output layer into a
     quadratic form (``‖h@W+b‖² = h·G·hᵀ + 2h·u + c`` — the wide output
-    never exists), trading ~half the widest layer's MXU work for
+    never exists), trading ~half the widest layer's matmul work for
     quadratic-form cancellation (measured error tables in docs/PERF.md).
 
-    ``precision`` defaults per backend to the accuracy-gated fast tier
-    (``Precision.HIGH`` / in-kernel bf16x3). Measured on converged
-    weights (docs/PERF.md): far-field error is ≤ ~9e-4 relative to
-    |logL|, but NEAR the posterior mode the fast gram tier's absolute
-    error reaches |ΔlogL| ≈ 0.43 — fine for MH sampling (a smooth
-    deterministic perturbation below the accept step's practical noise
-    floor), not for reading absolute log-densities (evidence, sharp
-    likelihood ratios). Pass ``precision="contract"`` (= ``"highest"``,
-    exact-f32 matmuls) for those. Jit the result for dispatch (it is
-    shard-transparent: batch-sharded inputs propagate).
+    ``precision`` defaults to the fast tier ``Precision.HIGH``, whose
+    arithmetic is the backend's choice (see
+    :func:`tpu21cmvae.ops.fold.resolve_precision`); ``bench_mcmc.py``
+    gates each tier against the exact path on a converged checkpoint
+    (|ΔlogL| ≤ 0.25 near the posterior mode, plus 1.5e-3 per unit of
+    depth). On an H100 the fast tiers run TF32 and fail that gate
+    (docs/PERF.md); pass ``precision="contract"`` (= ``"highest"``,
+    exact-f32 matmuls) wherever log-density values matter. Jit the
+    result for dispatch (it is shard-transparent: batch-sharded inputs
+    propagate).
     """
     if method not in ("direct", "gram"):
         raise ValueError(f"method must be 'direct' or 'gram'; got {method!r}")
@@ -153,81 +145,26 @@ def make_loglik(
     if isinstance(noise_var, ScaleMarginalNoise):
         # noise-level marginalization is an exact scalar post-transform
         # of the σ=1 base likelihood (tpu21cmvae.noisescale) — every
-        # backend/method/tier below is reused unchanged
+        # method/tier below is reused unchanged
         base = make_loglik(
-            config, norm, obs, noise_var.base, backend=backend,
-            method=method, precision=precision, block_rows=block_rows,
-            interpret=interpret,
+            config, norm, obs, noise_var.base, method=method,
+            precision=precision,
         )
         return noise_var.wrap_value(base, config.n_bins)
-    if backend == "pallas":
-        from tpu21cmvae.ops.pallas.fused_loglik import (
-            DEFAULT_LOGLIK_BLOCK_ROWS,
-            make_fused_loglik,
-            make_fused_loglik_gram,
-        )
+    from tpu21cmvae.ops.fold import resolve_precision
 
-        build = make_fused_loglik if method == "direct" else make_fused_loglik_gram
-        fused = build(
-            config,
-            norm,
-            obs,
-            noise_var,
-            block_rows=block_rows or DEFAULT_LOGLIK_BLOCK_ROWS,
-            interpret=interpret,
-            precision="high" if precision is None else precision,
-        )
-        # Gradient-based samplers (HMC/NUTS) need ∇logL; the kernel is
-        # forward-only, so route the backward through the composed XLA
-        # path at the same tier — exact same math, fully differentiable.
-        # The kernel-only A/B tier strings map to the XLA HIGH tier.
-        twin_precision = precision
-        if isinstance(precision, str) and precision.lower().replace(
-            "_", "-"
-        ) in ("high-stacked", "high-split"):
-            twin_precision = "high"
-        xla_twin = make_loglik(
-            config, norm, obs, noise_var,
-            backend="xla", method=method, precision=twin_precision,
-        )
-
-        @jax.custom_vjp
-        def loglik(params, raw_params):
-            return fused(params, raw_params)
-
-        def fwd(params, raw_params):
-            return fused(params, raw_params), (params, raw_params)
-
-        def bwd(residuals, g):
-            params, raw_params = residuals
-            _, vjp = jax.vjp(xla_twin, params, raw_params)
-            return vjp(g)
-
-        loglik.defvjp(fwd, bwd)
-        return loglik
-    if backend != "xla":
-        raise ValueError(f"backend must be 'xla' or 'pallas'; got {backend!r}")
-    from tpu21cmvae.ops.pallas.fused_mlp import resolve_precision
-
-    # the kernel-only A/B tier strings lower to the XLA HIGH tier here
-    # (same accuracy class), mirroring the pallas branch's twin mapping
-    if isinstance(precision, str) and precision.lower().replace("_", "-") in (
-        "high-stacked",
-        "high-split",
-    ):
-        precision = "high"
     precision = resolve_precision(
         jax.lax.Precision.HIGH if precision is None else precision
     )
     obs = jnp.asarray(obs, jnp.float32)
 
     if method == "gram":
-        from tpu21cmvae.ops.pallas.fused_loglik import (
+        from tpu21cmvae.ops.fold import (
+            _log_clamp,
             gram_fold,
             noise_log_norm,
             noise_scale,
         )
-        from tpu21cmvae.ops.pallas.fused_mlp import _log_clamp
 
         scale = noise_scale(noise_var, config.n_bins)
         log_norm = noise_log_norm(noise_var)
@@ -247,7 +184,7 @@ def make_loglik(
             h = _log_clamp(jnp.atleast_2d(raw_params.astype(jnp.float32)))
             for i, layer in enumerate(trunk):  # trunk layers are hidden
                 if i == 0 and layer["w"].shape[0] <= SKINNY_DENSE_MAX_IN:
-                    h = skinny_dense(h, layer["w"], layer["b"])  # exact, VPU
+                    h = skinny_dense(h, layer["w"], layer["b"])  # exact f32
                 else:
                     h = (
                         jnp.matmul(h, layer["w"], precision=precision)
@@ -372,7 +309,7 @@ def make_loglik_multi(
     machinery (:func:`tpu21cmvae.sampling.sample_mh` /
     :func:`~tpu21cmvae.sampling.sample_hmc`) runs ``O`` independent
     posteriors at once — walkers for every observation advance in each
-    fused likelihood batch, exactly the mega-batch shape the MXU wants
+    likelihood batch, exactly the mega-batch shape the matmuls want
     (:meth:`DirectEmulator.sample_posterior_batch` wraps this; SBC in
     :mod:`tpu21cmvae.calibration` is built on it).
 
@@ -403,13 +340,8 @@ def make_loglik_multi(
             f"obs_batch must be (O, {config.n_bins}); got {obs_batch.shape}"
         )
     _check_multi_noise(noise_var, config.n_bins)
-    from tpu21cmvae.ops.pallas.fused_mlp import resolve_precision
+    from tpu21cmvae.ops.fold import resolve_precision
 
-    if isinstance(precision, str) and precision.lower().replace("_", "-") in (
-        "high-stacked",
-        "high-split",
-    ):
-        precision = "high"
     precision = resolve_precision(
         jax.lax.Precision.HIGH if precision is None else precision
     )
@@ -444,12 +376,12 @@ def make_loglik_multi(
         resolve_activation,
         skinny_dense,
     )
-    from tpu21cmvae.ops.pallas.fused_loglik import (
+    from tpu21cmvae.ops.fold import (
+        _log_clamp,
         fold_loglik_constants,
         noise_log_norm,
         noise_scale,
     )
-    from tpu21cmvae.ops.pallas.fused_mlp import _log_clamp
 
     scale = noise_scale(noise_var, config.n_bins)
     log_norm = noise_log_norm(noise_var)
@@ -533,13 +465,10 @@ def make_loglik_and_grad(
     obs,
     noise_var=1.0,
     *,
-    backend: str = "xla",
     method: str = "gram",
     variant: Optional[str] = None,
     precision=None,
     grad_precision=None,
-    block_rows: Optional[int] = None,
-    interpret: Optional[bool] = None,
 ):
     """Build ``fn(params, raw_params) → (logL, dlogL/draw)`` with shapes
     ``(B,), (B, n_params)`` — the gradient-based-sampler (HMC/NUTS)
@@ -550,75 +479,42 @@ def make_loglik_and_grad(
     Variants (the ∇logL benchmark in ``bench_mcmc.py`` crosses them and
     selects by measurement under a gradient accuracy gate):
 
-    * ``backend="xla", variant="autodiff"`` — ``jax.vjp`` through
-      :func:`make_loglik` at the same backend/method/tier. The baseline;
-      stores every trunk activation to HBM between forward and backward.
-    * ``backend="xla", method="gram", variant="analytic"`` (default) —
-      hand-written backward. Two structural wins over autodiff: the gram
-      head's gradient REUSES the forward's ``h@G`` product (``G = WWᵀ``
-      is exactly symmetric, so ``d(h·G·hᵀ)/dh = 2(h@G)`` — autodiff
-      spends a second hidden×hidden matmul here), and the backward tier
-      is independently selectable via ``grad_precision``.
-    * ``backend="pallas", method="gram"`` — the whole value+gradient as
-      ONE kernel
-      (:func:`tpu21cmvae.ops.pallas.fused_loglik.make_fused_loglik_grad_gram`):
-      activations never leave VMEM, the backward re-reads nothing from
-      HBM.
+    * ``variant="autodiff"`` — ``jax.vjp`` through :func:`make_loglik`
+      at the same method/tier. The baseline; stores every trunk
+      activation between forward and backward.
+    * ``method="gram", variant="analytic"`` (default) — hand-written
+      backward. Two structural wins over autodiff: the gram head's
+      gradient REUSES the forward's ``h@G`` product (``G = WWᵀ`` is
+      exactly symmetric, so ``d(h·G·hᵀ)/dh = 2(h@G)`` — autodiff spends
+      a second hidden×hidden matmul here), and the backward tier is
+      independently selectable via ``grad_precision``.
 
-    ``grad_precision`` (analytic/pallas only) tiers the backward
-    matmuls separately from the value's ``precision``. A cheaper
-    backward than value tier is admissible for HMC: leapfrog with any
-    deterministic approximate force field remains reversible and
-    volume-preserving, so the Metropolis accept step (which uses the
-    gated VALUE) keeps the posterior exact — gradient error only costs
-    acceptance rate (measured bounds in docs/PERF.md).
+    ``grad_precision`` (analytic only) tiers the backward matmuls
+    separately from the value's ``precision``. A cheaper backward than
+    value tier is admissible for HMC: leapfrog with any deterministic
+    approximate force field remains reversible and volume-preserving,
+    so the Metropolis accept step (which uses the gated VALUE) keeps
+    the posterior exact — gradient error only costs acceptance rate
+    (measured bounds in docs/PERF.md).
     """
     if variant is None:
-        # gram has a hand-written/fused backward on both backends; the
-        # direct method only exists as autodiff
+        # gram has a hand-written backward; the direct method only
+        # exists as autodiff
         variant = "autodiff" if method == "direct" else "analytic"
     from tpu21cmvae.noisescale import ScaleMarginalNoise
 
     if isinstance(noise_var, ScaleMarginalNoise):
         # exact chain rule through the scalar post-transform — the
-        # analytic/fused gradient backends carry over unchanged
+        # analytic gradient carries over unchanged
         base = make_loglik_and_grad(
-            config, norm, obs, noise_var.base, backend=backend,
-            method=method, variant=variant, precision=precision,
-            grad_precision=grad_precision, block_rows=block_rows,
-            interpret=interpret,
-        )
-        return noise_var.wrap_valgrad(base, config.n_bins)
-    if backend == "pallas":
-        if method != "gram" or variant == "autodiff":
-            raise ValueError(
-                "the fused value+grad kernel exists for method='gram' only "
-                "(the direct method's backward adds a strictly larger "
-                "(n_bins, hidden) matmul — use the gram form or the XLA "
-                f"autodiff variant); got method={method!r}, "
-                f"variant={variant!r}"
-            )
-        from tpu21cmvae.ops.pallas.fused_loglik import (
-            DEFAULT_GRAD_BLOCK_ROWS,
-            make_fused_loglik_grad_gram,
-        )
-
-        return make_fused_loglik_grad_gram(
-            config,
-            norm,
-            obs,
-            noise_var,
-            block_rows=block_rows or DEFAULT_GRAD_BLOCK_ROWS,
-            interpret=interpret,
-            precision="high" if precision is None else precision,
+            config, norm, obs, noise_var.base, method=method,
+            variant=variant, precision=precision,
             grad_precision=grad_precision,
         )
-    if backend != "xla":
-        raise ValueError(f"backend must be 'xla' or 'pallas'; got {backend!r}")
+        return noise_var.wrap_valgrad(base, config.n_bins)
     if variant == "autodiff":
         base = make_loglik(
-            config, norm, obs, noise_var,
-            backend=backend, method=method, precision=precision,
+            config, norm, obs, noise_var, method=method, precision=precision,
         )
 
         def loglik_grad_ad(params, raw_params):
@@ -641,27 +537,23 @@ def make_loglik_and_grad(
             "the analytic backward hard-codes ReLU masks; got "
             f"activation={config.activation!r} — use variant='autodiff'"
         )
-    from tpu21cmvae.ops.mlp import SKINNY_DENSE_MAX_IN, skinny_dense
-    from tpu21cmvae.ops.pallas.fused_loglik import (
+    from tpu21cmvae.ops.fold import (
+        _log_clamp,
+        _log_clamp_grad,
         gram_fold,
         noise_log_norm,
         noise_scale,
-    )
-    from tpu21cmvae.ops.pallas.fused_mlp import (
-        _log_clamp,
-        _log_clamp_grad,
         resolve_precision,
     )
+    from tpu21cmvae.ops.mlp import SKINNY_DENSE_MAX_IN, skinny_dense
 
-    def _tier(p, default):
-        if isinstance(p, str) and p.lower().replace("_", "-") in (
-            "high-stacked", "high-split",
-        ):
-            p = "high"
-        return resolve_precision(default if p is None else p)
-
-    fwd_prec = _tier(precision, jax.lax.Precision.HIGH)
-    bwd_prec = _tier(grad_precision, fwd_prec)
+    fwd_prec = resolve_precision(
+        jax.lax.Precision.HIGH if precision is None else precision
+    )
+    bwd_prec = (
+        fwd_prec if grad_precision is None
+        else resolve_precision(grad_precision)
+    )
     hp = jax.lax.Precision.HIGHEST
     scale = noise_scale(noise_var, config.n_bins)
     log_norm = noise_log_norm(noise_var)
@@ -673,7 +565,7 @@ def make_loglik_and_grad(
         acts = []
         for i, layer in enumerate(trunk):
             if i == 0 and layer["w"].shape[0] <= SKINNY_DENSE_MAX_IN:
-                h = skinny_dense(h, layer["w"], layer["b"])  # exact, VPU
+                h = skinny_dense(h, layer["w"], layer["b"])  # exact f32
             else:
                 h = jnp.matmul(h, layer["w"], precision=fwd_prec) + layer["b"]
             h = jnp.maximum(h, 0.0)

@@ -66,20 +66,19 @@ def init_mlp(key: jax.Array, sizes: Sequence[int], dtype=jnp.float32) -> MLPPara
     )
 
 
-# At or below this fan-in, a dense layer runs as VPU broadcast-FMA
-# instead of an MXU matmul: the MXU pads the contraction dim to a full
-# tile, wasting ~18× the logical FLOPs at in_dim=7, while the VPU does
-# exactly in_dim fused multiply-adds per output in native f32. Measured
-# on v5e (flagship 7-wide first layer, 2²⁰-row batches): +7.6 % on the
-# gram log-likelihood path, and exact f32 regardless of the matmul
-# precision tier. Covers the 7-parameter input layer; deliberately below
-# the AE/VAE latent width (9) so latent→decoder stays on the MXU.
+# At or below this fan-in, a dense layer runs as broadcast multiply-adds
+# instead of a matmul: exactly in_dim fused multiply-adds per output in
+# native f32, exact regardless of the matmul precision tier, with no
+# contraction dim padded up to a matrix-unit tile. Covers the
+# 7-parameter input layer; deliberately below the AE/VAE latent width
+# (9) so latent→decoder stays a matmul. Whether it is faster than a
+# matmul on a GPU is not measured yet.
 SKINNY_DENSE_MAX_IN = 8
 
 
 def skinny_dense(x: jax.Array, w: jax.Array, b: jax.Array) -> jax.Array:
     """``x @ w + b`` as explicit broadcast multiply-adds over the (small,
-    static) fan-in — VPU work, exact f32 accumulation."""
+    static) fan-in — elementwise work, exact f32 accumulation."""
     acc = b[None, :] + x[:, 0:1] * w[0][None, :]
     for k in range(1, w.shape[0]):
         acc = acc + x[:, k: k + 1] * w[k][None, :]
@@ -96,13 +95,12 @@ def mlp_apply(
     which is linear (matching ``_gen_model``'s output layer,
     reference ``emulator.py:45-46``).
 
-    ``precision`` defaults to HIGHEST: this JAX build's default matmul
-    precision truncates f32 inputs to bf16-class products, which costs
-    ~3 decimal digits — fatal for the 0.34 % accuracy contract. The
-    emulator is HBM-bound, not MXU-bound, so full-precision passes are
-    effectively free here. A first layer with fan-in ≤
-    :data:`SKINNY_DENSE_MAX_IN` runs as exact VPU broadcast-FMA at every
-    tier (see :func:`skinny_dense`).
+    ``precision`` defaults to HIGHEST, exact f32 on every backend: the
+    backend's default f32 matmul may round its inputs (TF32 on an
+    NVIDIA GPU), which costs digits on trained weights — the fast tiers
+    are gated separately by ``bench.py``. A first layer with fan-in ≤
+    :data:`SKINNY_DENSE_MAX_IN` runs as exact broadcast multiply-adds at
+    every tier (see :func:`skinny_dense`).
 
     ``precision`` may also be a SEQUENCE of per-layer precisions (one
     per layer, skinny first layer included for alignment though it

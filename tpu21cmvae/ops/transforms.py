@@ -2,7 +2,7 @@
 
 Capability parity with the reference's ``preprocess.py`` (``preproc``
 ``:4-24``, ``unpreproc`` ``:27-46``, ``par_transform`` ``:49-110``), with a
-TPU-first redesign: the reference recomputes the training-set statistics on
+a redesign: the reference recomputes the training-set statistics on
 every call — O(N_train) work per predict (``preprocess.py:88-101``). Here
 the statistics are computed once into a :class:`Normalizer` pytree that is
 closed over by jitted functions and saved with every model checkpoint, so

@@ -5,12 +5,6 @@ from tpu21cmvae.parallel.mesh import (  # noqa: F401
     shard_batch,
 )
 from tpu21cmvae.parallel.inference import ShardedEmulator  # noqa: F401
-from tpu21cmvae.parallel.fused import (  # noqa: F401
-    shard_data,
-    sharded_fused_loglik,
-    sharded_fused_loglik_grad,
-    sharded_fused_predict,
-)
 from tpu21cmvae.parallel.train_dp import (  # noqa: F401
     dp_fit,
     dp_fit_scan,

@@ -38,7 +38,7 @@ class ShardedEmulator:
 
     Typically built from a model:
     ``ShardedEmulator.for_model(direct_emulator)`` or explicitly with any
-    jittable predict function (XLA path or Pallas fused kernel).
+    jittable predict function.
     """
 
     def __init__(
@@ -69,34 +69,13 @@ class ShardedEmulator:
         cls,
         model,
         mesh: Optional[Mesh] = None,
-        backend: str = "xla",
         precision=None,
         **kwargs,
     ):
         """Build from any model exposing ``predict_fn()`` + ``params``
         (all three families; works for any (weights, raw)→signal fn).
-
-        ``backend="pallas"`` (direct family only) serves through the
-        fused whole-chain kernel instead, partitioned over the mesh via
-        ``shard_map`` (:func:`tpu21cmvae.parallel.fused.sharded_fused_predict`)
-        — a bare ``pallas_call`` under jit would make XLA gather the
-        sharded batch onto every device. ``precision`` picks the tier
-        (pallas default: the gate-passing in-kernel bf16x3)."""
+        ``precision`` picks the direct family's matmul tier."""
         mesh = mesh if mesh is not None else make_mesh()
-        if backend == "pallas":
-            from tpu21cmvae.parallel.fused import sharded_fused_predict
-
-            fn = sharded_fused_predict(
-                model.config,
-                model.normalizer,
-                mesh,
-                precision="high" if precision is None else precision,
-            )
-            return cls(fn, model.params, mesh=mesh, **kwargs)
-        if backend != "xla":
-            raise ValueError(
-                f"backend must be 'xla' or 'pallas'; got {backend!r}"
-            )
         # predict_fn() is already jitted; wrapping it in the sharded jit
         # here just inlines it — XLA sees one program with the shardings.
         # (only the direct family's predict_fn takes a precision tier)

@@ -4,12 +4,12 @@ The reference is strictly single-device Keras (SURVEY.md §2.3: no
 ``tf.distribute``, no collectives). The one parallelism that is
 semantically meaningful for this workload is **data parallelism over the
 batch axis** — the model is 372k params (replicated everywhere); the
-scaling axis is MCMC-scale batches of parameter draws. TPU-native design:
-one ``jax.sharding.Mesh`` over all chips, batch sharded with
-``NamedSharding(P("data"))`` under jit, gradient/batch collectives ride
-ICI via XLA (multi-host over DCN via ``jax.distributed.initialize``).
+scaling axis is MCMC-scale batches of parameter draws. Design: one 1-D
+``jax.sharding.Mesh`` over all devices, batch sharded with
+``NamedSharding(P("data"))`` under jit, gradient/batch collectives
+inserted by XLA (multi-host via ``jax.distributed.initialize``).
 
-This module is a no-op on one chip and scales to a pod slice without code
+This module is a no-op on one device and scales to several without code
 changes; tests exercise it on a virtual 8-device CPU mesh.
 """
 
@@ -32,8 +32,8 @@ def make_mesh(devices: Optional[Sequence] = None, axis: str = DATA_AXIS) -> Mesh
 
 
 def multihost_init(**kwargs) -> None:
-    """Initialize multi-host JAX (DCN) — thin alias so users have one
-    entry point; call before :func:`make_mesh` on TPU pod slices."""
+    """Initialize multi-host JAX — thin alias so users have one entry
+    point; call before :func:`make_mesh` on a multi-host cluster."""
     jax.distributed.initialize(**kwargs)
 
 

@@ -4,7 +4,7 @@ The reference trains single-device via ``Model.fit``
 (reference ``emulator.py:369-378``). Here the same jitted epoch loop runs
 data-parallel: weights and optimizer state replicated, every batch
 sharded on the ``data`` axis; XLA inserts the gradient all-reduce (psum)
-over ICI automatically from the shardings — no NCCL/MPI analogue needed
+automatically from the shardings — no hand-written collective needed
 (SURVEY.md §2.3/§5).
 
 ``dp_fit`` is a drop-in for :func:`tpu21cmvae.train.loop.fit` with a
@@ -153,7 +153,7 @@ def dp_fit_scan(
     the dataset batch-sharded and params/optimizer replicated).
 
     The per-epoch permutation is global, so batch re-sharding rides XLA
-    collectives over ICI; gradients all-reduce via the shardings as in
+    collectives; gradients all-reduce via the shardings as in
     :func:`make_dp_train_step`. Semantics (shuffles, callbacks,
     histories) are identical to the single-device path.
     """

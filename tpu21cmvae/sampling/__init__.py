@@ -5,11 +5,10 @@ sampler (reference ``README.rst:9-11``; Bye et al. 2022 §4), but it
 ships no sampling support — users glue ~40 ms-per-signal ``predict``
 calls into emcee. Here the whole sampler IS the device program: every
 walker-step of Metropolis-Hastings or HMC runs inside one ``lax.scan``
-with zero host round trips, consuming the bench-selected likelihood
-paths (:func:`tpu21cmvae.ops.loglik.make_loglik` /
-:func:`~tpu21cmvae.ops.loglik.make_loglik_and_grad` — measured tiers in
-docs/PERF.md: ~6×10⁷ MH likelihood evals/s, ~4×10⁷ HMC value+gradient
-evals/s on one v5e chip).
+with zero host round trips, consuming the likelihood paths
+(:func:`tpu21cmvae.ops.loglik.make_loglik` /
+:func:`~tpu21cmvae.ops.loglik.make_loglik_and_grad` — measured rates
+per tier in docs/PERF.md).
 
 Design notes:
 

@@ -213,7 +213,7 @@ def log_evidence(
     proposal-scale adaptation; the random-walk-MH predecessor measurably
     failed to anneal cold rungs from prior draws, see :func:`sample_pt`),
     ALL rungs advancing in two half-ensemble likelihood batches per step
-    (K·W rows — the TPU doesn't care), with ``swap_sweeps``
+    (K·W rows — one mega-batch either way), with ``swap_sweeps``
     likelihood-free replica-exchange sweeps between adjacent rungs per
     step so hot rungs keep cold rungs mixed. The sampling phase pools
     every (step, walker) sample into the stepping-stone estimator
@@ -254,7 +254,7 @@ def log_evidence(
 
     ``mesh``: optional device mesh — the RUNG axis shards across it
     (``n_rungs`` must divide evenly); replica exchange's neighbor roll
-    lowers to a ``ppermute`` over ICI, everything else is rung-local.
+    lowers to a ``ppermute``, everything else is rung-local.
     """
     lo, hi = _resolve_bounds(bounds)
     n_params = int(lo.shape[0])
@@ -278,7 +278,7 @@ def log_evidence(
             k_init, n_rungs * n_walkers, lo, hi
         ).reshape(n_rungs, n_walkers, n_params)
     # mesh: shard the RUNG axis — per-rung work is independent except
-    # the replica-exchange roll, which lowers to ppermute over ICI
+    # the replica-exchange roll, which lowers to a ppermute
     x = _shard_walkers(x, mesh)
 
     cfg = _LadderProgram(
@@ -880,8 +880,8 @@ def laplace_evidence(
     emulator posteriors — a 1024×500 budget (the ladder warm start's
     floor) measurably stranded the ascent 9 nats below the mode on one
     rugged observation where 4096×2000 lands within 1 nat of nested,
-    and the heavier budget still costs ~1 s warm on a v5e (~8×10⁶
-    value+gradient rows at ~10⁷/s). The IS stage runs ``n_rounds``
+    and the heavier budget is only ~8×10⁶ value+gradient rows. The IS
+    stage runs ``n_rounds``
     rounds of ``n_is`` Student-t draws with ADAPTIVE proposals
     (:func:`_amis_sharpen` — moment-matched refits combined by the
     balance heuristic; ``n_rounds=1`` is the plain Hessian-proposal

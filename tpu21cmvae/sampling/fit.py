@@ -142,9 +142,8 @@ def fit_map(
     names fitting observed spectra as the intended use; the reference
     ships no fitter). A thousand restarts cost what one costs — the
     batch rides the same fused value+gradient path the HMC sampler uses
-    (docs/PERF.md: ~4×10⁷ value+gradient evals/s on one v5e chip), and
-    multi-start is the practical defense against local optima in the
-    7-parameter landscape.
+    (measured rates in docs/PERF.md), and multi-start is the practical
+    defense against local optima in the 7-parameter landscape.
 
     The ascent runs in the same sigmoid-whitened unbounded space as
     :func:`sample_hmc` (per-parameter scale = prior span; iterates can
@@ -208,8 +207,8 @@ def _whitened_adam_ascent(
     # cached on the valgrad closure (the sampler idiom,
     # _chain_program): repeated fits / profiles / Laplace runs / ladder
     # warm starts with the same statics reuse one compiled program —
-    # through the tunnel that turns every warm call from a 5–20 s
-    # retrace into milliseconds. ``params`` is a RUN argument, so a
+    # every warm call skips the retrace and recompile. ``params`` is a
+    # RUN argument, so a
     # retrained model's weights can never go stale in the cache.
     cfg = _AscentProgram(
         n_steps=int(n_steps),
@@ -291,7 +290,7 @@ def profile_likelihood(
     calls: for every value ``g`` in ``grid``, maximize
     ``logL(θ | θ_index = g)`` over the remaining parameters.
 
-    TPU shape: the ENTIRE scan — ``len(grid) · n_starts`` constrained
+    Device shape: the ENTIRE scan — ``len(grid) · n_starts`` constrained
     multi-start Adam ascents — is ONE batched device program riding the
     same fused value+gradient path as :func:`fit_map` (the profiled
     coordinate is pinned by masking its whitened-space gradient).

@@ -419,7 +419,7 @@ def sample_hmc(
     block scale difference is exactly what the per-block step absorbs.
 
     ``valgrad`` is typically ``DirectEmulator.loglik_and_grad_fn(obs,
-    noise_var)`` (bench-selected fused value+gradient kernel on TPU).
+    noise_var)`` (the analytic gram value+gradient path).
     Sampling happens in the sigmoid-whitened ``y``-space (flat box prior
     exact via the Jacobian term); warmup adapts the leapfrog step by
     dual averaging toward ``target_accept``, then the sampling phase
@@ -772,8 +772,8 @@ def sample_chees(
     from the posterior mean, a proxy for maximizing ESS of second
     moments — whose gradient with respect to the trajectory time has a
     closed form in the endpoint momentum (their eq. 8). The result
-    keeps every iteration a fixed-shape batched leapfrog (MXU-friendly,
-    one compiled program) while matching NUTS-quality trajectory
+    keeps every iteration a fixed-shape batched leapfrog (one compiled
+    program) while matching NUTS-quality trajectory
     tuning; the paper finds it competitive with or better than NUTS
     across their benchmark posteriors.
 
@@ -1199,7 +1199,7 @@ def sample_nuts(
     _dense_readapt: bool = False,
 ) -> NUTSSampleResult:
     """No-U-Turn Sampler (multinomial NUTS) over ``valgrad``, built as a
-    BATCHED ITERATIVE tree — the TPU-native formulation of the sampler
+    BATCHED ITERATIVE tree — the accelerator formulation of the sampler
     Stan/PyMC/NumPyro users expect.
 
     ``adapt_blocks=G``: keep G independent dual-averaged step sizes AND
@@ -1214,12 +1214,11 @@ def sample_nuts(
     whitened per-walker trees meaningful per observation.
 
     Textbook NUTS is recursive with data-dependent trajectory lengths —
-    hostile to SPMD batching (see :func:`sample_chees`, which remains
-    the recommended adaptive sampler on TPU: measured numbers in
-    docs/PERF.md). This implementation removes the recursion, not the
+    hostile to SPMD batching (see :func:`sample_chees`, the fixed-shape
+    adaptive alternative). This implementation removes the recursion, not the
     algorithm: per draw, trajectory doubling ``d = 0 … max_depth-1``
     runs as an unrolled loop of fixed-shape subtree builds (one
-    ``fori_loop`` of ``2**d`` leapfrog steps, each one batched MXU
+    ``fori_loop`` of ``2**d`` leapfrog steps, each one batched device
     call across all walkers), with
 
     * **multinomial sampling** within and across subtrees (Betancourt

@@ -146,10 +146,10 @@ def sample_mh(
     """Metropolis-Hastings ensemble over ``loglik(params, raw) → (B,)``.
 
     ``loglik`` is any jittable batched log-likelihood — typically
-    ``DirectEmulator.loglik_fn(obs, noise_var)`` (the bench-selected
-    gram/bf16x3 tier). Proposals are isotropic Gaussians scaled per
-    parameter by ``step_frac`` of the prior span; proposals outside the
-    prior box are REJECTED (the target is zero there — exact Metropolis
+    ``DirectEmulator.loglik_fn(obs, noise_var)`` (the gram form).
+    Proposals are isotropic Gaussians scaled per parameter by
+    ``step_frac`` of the prior span; proposals outside the prior box are
+    REJECTED (the target is zero there — exact Metropolis
     with a symmetric proposal; a clipped proposal is not symmetric at
     the faces and piles stationary mass on the boundary, which matters
     for near-flat targets). The likelihood is evaluated on a safe

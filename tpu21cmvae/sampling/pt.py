@@ -393,8 +393,8 @@ def sample_pt(
 
     Mode-WEIGHT convergence is transport-limited: expect O(10³) kept
     steps for the cold-chain split to equilibrate (each mode
-    assignment must traverse the ladder). That is seconds on a TPU —
-    sweeps are fixed-shape mega-batches, the whole run one program.
+    assignment must traverse the ladder). That is cheap here — sweeps
+    are fixed-shape mega-batches, the whole run one program.
 
     Programs are cached on the likelihood closure (weights are traced
     arguments), so repeated calls with the same statics re-trace

@@ -360,7 +360,7 @@ def sample_smc(
     Jasra 2006): anneal a particle population from the prior to the
     posterior along a SELF-CHOSEN β schedule, harvesting the evidence
     on the way — the algorithm modern cosmology samplers (pocoMC;
-    dynesty's rivals) build on, and a natural TPU program: every stage
+    dynesty's rivals) build on, and a natural device program: every stage
     is three fixed-shape population-wide batches (weight, resample,
     mutate), no sequential chain anywhere.
 

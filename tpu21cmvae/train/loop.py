@@ -1,7 +1,7 @@
 """jit-compiled training loop: one device call per epoch.
 
 Replaces the reference's Keras ``Model.fit`` path
-(reference ``emulator.py:369-378``) with a TPU-first design:
+(reference ``emulator.py:369-378``) with a device-resident design:
 
 * the whole dataset lives on device; each epoch is ONE jitted call that
   shuffles (``jax.random.permutation``), then ``lax.scan``s over batches

@@ -4,7 +4,7 @@ The reference advertises a tuner ("modules for hyperparameter tuning",
 reference ``README.rst:13``) used in Bye et al. 2022 to find the
 7→288→352→288→224→451 flagship architecture, but the file is gitignored
 and absent from the v3.1.0 snapshot (reference ``.gitignore:14``). This
-module restores the capability, designed for TPU throughput:
+module restores the capability, designed for device throughput:
 
 * random search over hidden-layer stacks (layer count × width choices),
   scored by mean relative validation error — the paper's figure of merit
@@ -14,17 +14,16 @@ module restores the capability, designed for TPU throughput:
   hit XLA's compilation cache, so the search is dominated by step time,
   not retracing;
 * width choices default to multiples of 32, matching the granularity
-  the reference's published architectures use (288/352/224…). NOTE:
-  the MXU bills at the 128-LANE granularity — a 288-wide layer
-  multiplies as 384, a 224 as 256 (``utils/profiling.py::
-  matmul_flops_per_row``; measured ~30 % of the flagship stack's padded
-  MXU work is pure padding, docs/PERF.md) — so :data:`MXU_ALIGNED_SPACE`
-  searches 128-multiples only, and every trial records its padded-MXU
-  cost;
+  the reference's published architectures use (288/352/224…). The cost
+  model charges matmuls at a 128-wide tile granularity — a 288-wide
+  layer multiplies as 384, a 224 as 256 (``utils/profiling.py::
+  matmul_flops_per_row``), so :data:`MXU_ALIGNED_SPACE` searches
+  128-multiples only, and every trial records its padded cost. That
+  granularity comes from an earlier accelerator and is not yet
+  calibrated on a GPU (ROADMAP D4);
 * throughput-aware selection: :meth:`TuneResult.best_efficient` picks
-  the cheapest-on-the-MXU trial within an accuracy slack of the best —
-  val error stays the primary objective, padding the tiebreak
-  (round-4 VERDICT weak #4);
+  the cheapest padded trial within an accuracy slack of the best —
+  val error stays the primary objective, padding the tiebreak;
 * deterministic: one root seed fans out per-trial init/shuffle keys.
 
 ``tune_direct`` searches the params→signal MLP; ``tune_autoencoder``
@@ -72,10 +71,10 @@ class SearchSpace:
         return tuple(int(w) for w in rng.choice(self.width_choices, size=n))
 
 
-#: 128-lane-aligned search space: every hidden width is a multiple of
-#: the MXU tile granularity, so padded MXU cost == logical cost for the
+#: 128-aligned search space: every hidden width is a multiple of the
+#: cost model's 128-wide tile, so padded cost == logical cost for the
 #: hidden stack (the 451-bin output pads to 512 regardless — fixed by
-#: the physics). The TPU-first counterpart of the reference's
+#: the physics). The aligned counterpart of the reference's
 #: laptop-era 288/352/288/224 shape (reference ``emulator.py:196``).
 MXU_ALIGNED_SPACE = SearchSpace(
     min_layers=3, max_layers=5, width_choices=(128, 256, 384)
@@ -121,9 +120,9 @@ class Trial:
 
     @property
     def padded_flops_per_row(self) -> float:
-        """What the MXU actually multiplies per batch row for this
-        architecture's forward (both weight-tile dims rounded up to the
-        128-lane granularity; skinny first layer runs on the VPU) —
+        """Padded matmul FLOPs per batch row for this architecture's
+        forward (both weight-tile dims rounded up to 128; the skinny
+        first layer runs as broadcast multiply-adds and is skipped) —
         the throughput cost :meth:`TuneResult.best_efficient` ranks by.
         0.0 for configs without a single ``mlp()`` chain (AE/VAE trials
         span three stacks; extend when they need the ranking)."""
@@ -155,12 +154,11 @@ class TuneResult:
     def best_efficient(self, slack: float = 0.10) -> Trial:
         """Throughput-aware selection: among trials whose validation
         error is within ``slack`` (relative) of the best, return the
-        one with the LOWEST padded-MXU cost (ties → better error).
-        Accuracy stays the primary objective; the MXU bill — which at
-        the 128-lane padding granularity differs by ~30 % between the
-        reference's 288/352/288/224 stack and an aligned one of equal
-        logical size (docs/PERF.md) — breaks the near-ties that pure
-        val-error ranking decided by noise. Falls back to :attr:`best`
+        one with the LOWEST padded cost (ties → better error).
+        Accuracy stays the primary objective; the padded cost — which
+        differs by ~30 % between the reference's 288/352/288/224 stack
+        and an aligned one of equal logical size — breaks the near-ties
+        that pure val-error ranking decided by noise. Falls back to :attr:`best`
         when no trial records a cost (AE/VAE trials)."""
         if not 0.0 <= slack:
             raise ValueError(f"slack must be >= 0; got {slack}")

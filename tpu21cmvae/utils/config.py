@@ -51,17 +51,16 @@ class DirectEmulatorConfig:
 DIRECT_ALIGNED = DirectEmulatorConfig(
     hidden_dims=(256, 256, 128, 128, 128)
 )
-"""MXU-128-aligned flagship architecture (round 5): every hidden width
-is a multiple of the MXU's 128-lane tile, so the padded MXU bill equals
-the logical one for the hidden stack — 393,216 padded FLOPs/row vs the
-reference shape's 1,048,576 (2.7× less), at 191,939 weights. Found by
-throughput-aware successive halving over
-:data:`tpu21cmvae.tuner.MXU_ALIGNED_SPACE`
-(``scripts/train_aligned_tpu.py``); strong-retrained to 0.177 % mean
-f32 test error and bf16-native fine-tuned to 0.195 % at
+"""128-aligned flagship architecture: every hidden width is a multiple
+of 128, so the tuner's padded FLOP count equals the logical one for the
+hidden stack — 393,216 padded FLOPs/row vs the reference shape's
+1,048,576 (2.7× less), at 191,939 weights. Found by throughput-aware
+successive halving over :data:`tpu21cmvae.tuner.MXU_ALIGNED_SPACE`
+(``scripts/train_aligned.py``); strong-retrained to 0.177 % mean f32
+test error and bf16-native fine-tuned to 0.195 % at
 ``Precision.DEFAULT`` on the golden synthetic split — the
-equal-accuracy-class TPU-first counterpart of the reference's
-laptop-era 288/352/288/224 (reference ``emulator.py:196``). Shipped as
+equal-accuracy-class aligned counterpart of the reference's laptop-era
+288/352/288/224 (reference ``emulator.py:196``). Shipped as
 ``pretrained/direct_aligned_bf16.npz``."""
 
 
@@ -149,8 +148,8 @@ LR schedule is still working (measured: runs stop at ~50-60 of 350
 epochs at ~0.5 % mean error); patience 30 trains 150-310 epochs and
 reached 0.16-0.28 % mean relative error across seeds at reference scale
 on the synthetic set — beyond the reference's published 0.34 %. Training
-is cheap here (~7.5 ms/epoch on v5e with ``device_loop=True``), so the
-longer schedule costs seconds."""
+runs as one device program with ``device_loop=True``, so the longer
+schedule is cheap."""
 
 AE_TRAIN_DEFAULT = TrainConfig(
     epochs=250,

@@ -22,8 +22,8 @@ class MetricsLogger:
 
     One JSON object per line: ``{"epoch": 3, "loss": ..., "val_loss": ...,
     "lr": ..., "epoch_time_s": ...}`` plus anything passed to
-    :meth:`log`. Each line is flushed immediately so a preempted TPU-VM
-    job keeps every finished epoch on disk.
+    :meth:`log`. Each line is flushed immediately so a preempted job
+    keeps every finished epoch on disk.
 
     Use :meth:`epoch_callback` to attach to ``fit(...,
     epoch_callback=...)``.

@@ -22,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import statistics
+import subprocess
 import time
 from typing import Callable, List, Optional
 
@@ -137,15 +138,22 @@ def debug_guard(nans: bool = True, infs: bool = False):
         jax.config.update("jax_debug_infs", prev_inf)
 
 
-# -- roofline / MFU accounting (round-3 VERDICT item 9) --------------------
+def gpu_card_info() -> str:
+    """Name and power limit of each NVIDIA card, one line per card, as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them — the two facts every timing on a GPU must carry (a card
+    set below its maximum power runs slower under load). Runs
+    ``nvidia-smi`` as a child process, which never touches JAX; raises
+    when it is missing or fails."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip()
 
-#: TPU v5e (v5 lite) peak dense bf16 matmul throughput per chip. Public
-#: spec number; every f32-precision tier decomposes into bf16 MXU passes
-#: against this same peak (HIGHEST=6, HIGH=3, DEFAULT=1 — ops/mlp.py).
-V5E_BF16_PEAK_FLOPS = 197e12
 
-#: MXU passes per f32-equivalent matmul for each precision tier.
-TIER_PASSES = {"highest": 6, "contract": 6, "high": 3, "default": 1}
+# -- FLOP accounting -------------------------------------------------------
 
 
 def _pad128(d: int) -> int:
@@ -154,36 +162,13 @@ def _pad128(d: int) -> int:
 
 def matmul_flops_per_row(sizes, skip_first: bool = True):
     """``(logical, padded)`` matmul FLOPs per batch row for a dense
-    chain of ``sizes``. ``padded`` counts what the MXU actually
-    multiplies: both dims of every weight tile rounded up to the
-    128-lane granularity. ``skip_first`` drops a skinny first layer that
-    runs on the VPU instead (``ops/mlp.py::skinny_dense``)."""
+    chain of ``sizes``. ``padded`` rounds both dims of every weight up
+    to a multiple of 128 (the tile granularity the tuner's cost model
+    charges). ``skip_first`` drops a skinny first layer, which runs as
+    broadcast multiply-adds (``ops/mlp.py::skinny_dense``)."""
     pairs = list(zip(sizes[:-1], sizes[1:]))
     if skip_first and pairs and sizes[0] <= 8:
         pairs = pairs[1:]
     logical = 2 * sum(a * b for a, b in pairs)
     padded = 2 * sum(_pad128(a) * _pad128(b) for a, b in pairs)
     return logical, padded
-
-
-def mfu_line(
-    label: str,
-    rows_per_s: float,
-    logical_flops_per_row: float,
-    padded_flops_per_row: float,
-    tier: str,
-    peak: float = V5E_BF16_PEAK_FLOPS,
-) -> str:
-    """One-line roofline statement: logical-FLOPs MFU against the bf16
-    peak, plus the effective MXU occupancy once tile padding and the
-    tier's multi-pass decomposition are charged — the honest 'how close
-    to speed-of-light' number for regressions to be judged against."""
-    passes = TIER_PASSES.get(tier.lower(), 1)
-    logical_rate = rows_per_s * logical_flops_per_row
-    occupancy = rows_per_s * padded_flops_per_row * passes / peak
-    return (
-        f"MFU[{label}]: {logical_rate / 1e12:.1f} TFLOP/s logical = "
-        f"{logical_rate / peak * 100:.1f}% of v5e bf16 peak; with tile "
-        f"padding x {passes} MXU passes ({tier}) -> "
-        f"{occupancy * 100:.0f}% effective MXU occupancy"
-    )

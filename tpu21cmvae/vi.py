@@ -14,11 +14,11 @@ Laplace-quality error bars away from hard box edges, and warm starts
 (``sample_posterior(..., x0=res.sample(n_walkers))``); use the chain
 samplers when the posterior may be non-Gaussian in the whitened space.
 
-TPU shape: the whole fit is ONE ``lax.scan`` device program; each step
-evaluates ``n_mc`` reparameterized draws through the fused
-value+gradient kernel — the same mega-batch economics as everything
-else in this framework (a 512-draw step costs microseconds at the
-measured ~4×10⁷ ∇logL evals/s, docs/PERF.md).
+Device shape: the whole fit is ONE ``lax.scan`` device program; each
+step evaluates ``n_mc`` reparameterized draws through the analytic
+value+gradient path — the same mega-batch economics as everything
+else in this framework (a 512-draw step is a tiny fraction of one
+2²⁰-row value+gradient batch; rates in docs/PERF.md).
 
 Design notes (mirrors :func:`tpu21cmvae.sampling.fit_map` /
 ``sample_hmc``):
